@@ -6,18 +6,30 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints one line; any failure exits nonzero and prints no
 result line):
   1. card: CUDA must be available; prints nvidia-smi's name and power limit;
-  2. build: compiles the hand-written kernels from palace_torch/csrc;
-  3. kernel against plain: the structured-apply kernel against its plain
-     PyTorch version on the card at small and main-path shapes, float64 and
-     float32, with kernel and plain medians over 20 CUDA-event-timed runs at
-     the main-path shape;
-  4. main path: palace_torch.run on the driven slice case (16^3 hex box,
+  2. build: compiles every hand-written kernel in palace_torch/csrc, one nvcc
+     process per source, all started together;
+  3. kernels against plain: both structured-apply kernels (natural channel
+     order, carry-class order) against their plain PyTorch versions on the
+     card at small shapes and at the two main-path shapes (p = 3, 16^3 and
+     12^3, B = 16), float64 and float32.  At those shapes: the CUDA-event
+     medians of both kernels, both plain versions and the stencil F.conv3d
+     that computes the same operator (library_ms), and the card's least
+     time for the work (bound_ms);
+  4. driven path: palace_torch.run on the driven slice case (16^3 hex box,
      Order 3, 345,744 dofs, 8 frequencies, GMG, Tol 1e-8) on the GPU; checks
-     the structured fine level engaged, the kernel launched, every column
-     converged, the host-recomputed residual of every column, and the
-     written tables;
-  5. card against host: the 4^3, Order 2 case through the port on the GPU
-     and on the CPU; domain-E.csv must agree to 1e-8.
+     the structured fine level engaged, the first kernel launched (and the
+     second did not), every column converged, the host-recomputed residual
+     of every column, and the written tables;
+  5. driven card against host: the 4^3, Order 2 case on the GPU and on the
+     CPU; domain-E.csv must agree to 1e-8;
+  6. eigenmode path: palace_torch.run on the eigenmode case (12^3 hex box,
+     Order 3, 147,852 dofs, 4 modes near 5 GHz, Tol 1e-8) on the GPU; checks
+     the device Lanczos branch and the structured fine level ran, the second
+     kernel launched (and the first did not), the modes against the analytic
+     cavity frequencies, every backward error, an independent host residual
+     of every pair, and the written tables;
+  7. eigenmode card against host: the 3^3, Order 2 case (Tol 1e-5) on the
+     GPU and on the CPU; eig.csv Re{f} must agree to 1e-10.
 The line before the last is the kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -25,6 +37,7 @@ The line before the last is the kernel JSON record; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -33,9 +46,22 @@ import tempfile
 import time
 
 KERNEL_CASES = [(1, (3, 2, 4)), (2, (3, 2, 4)), (3, (3, 2, 4)),
-                (2, (24, 24, 24)), (3, (16, 16, 16))]
-MAIN_P, MAIN_SHAPE, BATCH = 3, (16, 16, 16), 16  # B = 2F, F = 8 columns
+                (2, (24, 24, 24)), (3, (12, 12, 12)), (3, (16, 16, 16))]
+BATCH = 16  # B = 2F, F = 8 columns
+#: The main-path shape of each kernel: the driven path runs the first
+#: kernel at 16^3, the eigenmode path the second at 12^3.  Both kernels are
+#: timed at both shapes.
+DRIVEN_SHAPE, EIGEN_SHAPE = (16, 16, 16), (12, 12, 12)
+TIMED_SHAPES = (DRIVEN_SHAPE, EIGEN_SHAPE)
+MAIN_P = 3
 TOL = {"float64": 1e-12, "float32": 1e-5}  # max abs err / max |y|
+#: NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and float64 FLOP/s on
+#: the tensor cores (DMMA; 34 TFLOP/s on the FMA pipes) and float32 FLOP/s
+#: outside them.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
+C0 = 299792458.0  # m/s
+CAVITY_L, CAVITY_EPS = 24e-3, 2.0  # palace_torch/cases.py
 
 
 class SmokeFailure(Exception):
@@ -66,12 +92,15 @@ def phase_build():
     from palace_torch.ops import structured_kernel as sk
 
     t0 = time.perf_counter()
-    path, log = sk.build_kernels()
-    sk._library()
+    built = sk.build_kernels()
+    for stem in ("structured_apply", "structured_apply_v2"):
+        sk._library(stem)
     dt = time.perf_counter() - t0
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    print(f"[2 build] {os.path.relpath(path)} in {dt:.2f} s; ptxas: "
-          f"{' / '.join(regs) if regs else 'cached'}", flush=True)
+    for path, log in built:
+        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
+                if "registers" in ln]
+        print(f"[2 build] {os.path.relpath(path)} ({dt:.2f} s for all); "
+              f"ptxas: {' / '.join(regs) if regs else 'cached'}", flush=True)
 
 
 def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -91,48 +120,98 @@ def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _bound(p: int, shape, dtype_name: str):
+    """(bound_ms, bound_by): the card's least time for y = A u at this shape,
+    the larger of the compulsory bytes (Af, mask and u read once, y written
+    once) over the memory rate and the useful operations (2 nd^2 per real
+    cell and column) over the peak rate of the type."""
+    from palace_torch.ops.structured_kernel import _flat_tables
+
+    _, _, _, _, Lp, Lu, _ = _flat_tables(p, tuple(shape))
+    nd, C = 3 * p * (p + 1) ** 2, 3 * p ** 3
+    size = 8 if dtype_name == "float64" else 4
+    nbytes = (2 * BATCH * C * Lu + nd * nd + Lp) * size
+    ops = 2.0 * nd * nd * math.prod(shape) * BATCH
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS[dtype_name]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernels():
+    """Both kernels against their plain versions; returns the JSON records
+    of each kernel at its main-path shape (float64)."""
     import numpy as np
     import torch
 
-    from palace_torch.ops.structured import StructuredNDOperator
-    from palace_torch.ops.structured_kernel import (
-        flat_size, structured_apply_flat, structured_apply_flat_ref)
+    from palace_torch.ops import structured_kernel as sk
+    from palace_torch.ops.structured import (StructuredNDOperator,
+                                             structured_apply_conv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(0)
-    record = None
+    kernels = {"structured_apply_flat": (sk.structured_apply_flat,
+                                         sk.structured_apply_flat_ref),
+               "structured_apply_flat_v2": (sk.structured_apply_flat_v2,
+                                            sk.structured_apply_flat_v2_ref)}
+    main_shape = {"structured_apply_flat": DRIVEN_SHAPE,
+                  "structured_apply_flat_v2": EIGEN_SHAPE}
+    records = {}
+    t0 = time.perf_counter()
     for p, shape in KERNEL_CASES:
         sop = StructuredNDOperator.build_uniform(p, shape, 1.5, curl=1.0,
                                                  mass=-0.3)
-        u64 = rng.standard_normal((BATCH, 3 * p ** 3, flat_size(p, shape)))
+        Af_perm = sk.v2_tables(sop)[0]
+        u64 = rng.standard_normal((BATCH, 3 * p ** 3, sk.flat_size(p, shape)))
+        timed = p == MAIN_P and shape in TIMED_SHAPES
         for dt in (torch.float64, torch.float32):
-            Af = torch.as_tensor(sop.Af, dtype=dt, device=dev).contiguous()
-            u = torch.as_tensor(u64, dtype=dt, device=dev)
-            y = structured_apply_flat(Af, u, p=p, shape=shape)
-            torch.cuda.synchronize()
-            y_ref = structured_apply_flat_ref(Af, u, p=p, shape=shape)
-            err = float((y - y_ref).abs().max())
-            scale = float(y_ref.abs().max())
             name = str(dt).replace("torch.", "")
-            check(err <= TOL[name] * scale,
-                  f"kernel p={p} {shape} {name}: max abs err {err:.3e} > "
-                  f"{TOL[name]:.0e} x {scale:.3e}")
-            line = (f"[3 kernel] p={p} shape={shape} B={BATCH} {name}: max "
-                    f"abs err {err:.3e} (max |y| {scale:.3e})")
-            if (p, shape) == (MAIN_P, MAIN_SHAPE):
-                ms = _time_ms(lambda: structured_apply_flat(Af, u, p=p,
-                                                            shape=shape))
-                plain_ms = _time_ms(lambda: structured_apply_flat_ref(
-                    Af, u, p=p, shape=shape))
-                line += f"; median kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                if dt == torch.float64:
-                    record = {"max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms}
+            u = torch.as_tensor(u64, dtype=dt, device=dev)
+            line = f"[3 kernels] p={p} shape={shape} B={BATCH} {name}:"
+            for kname, (fn, ref) in kernels.items():
+                A = sop.Af if kname == "structured_apply_flat" else Af_perm
+                A = torch.as_tensor(A, dtype=dt, device=dev).contiguous()
+                y = fn(A, u, p=p, shape=shape)
+                torch.cuda.synchronize()
+                y_ref = ref(A, u, p=p, shape=shape)
+                err = float((y - y_ref).abs().max())
+                scale = float(y_ref.abs().max())
+                check(err <= TOL[name] * scale,
+                      f"{kname} p={p} {shape} {name}: max abs err {err:.3e} "
+                      f"> {TOL[name]:.0e} x {scale:.3e}")
+                line += f" {kname} max abs err {err:.3e};"
+                if not timed:
+                    continue
+                ms = _time_ms(lambda: fn(A, u, p=p, shape=shape))
+                plain_ms = _time_ms(lambda: ref(A, u, p=p, shape=shape))
+                line += f" median {ms:.4f} ms, plain {plain_ms:.4f} ms;"
+                if name == "float64" and shape == main_shape[kname]:
+                    records[kname] = {"max_abs_err": err, "ms": ms,
+                                      "plain_ms": plain_ms}
+            if timed:
+                # The library yardstick: the stencil convolution on the
+                # lattice layout of the same data (never called by the port).
+                W = torch.as_tensor(sop.W, dtype=dt, device=dev)
+                lat = sk.from_flat(u, p, shape).contiguous()
+                ess = torch.as_tensor(sop.ess_lat, device=dev)
+                y_conv = structured_apply_conv(W, lat, ess)
+                y_flat = sk.structured_apply_lattice(sop, lat)
+                conv_err = float((y_conv - y_flat).abs().max())
+                check(conv_err <= 1e3 * TOL[name] * float(
+                    y_flat.abs().max()), f"conv3d disagrees: {conv_err:.3e}")
+                lib_ms = _time_ms(lambda: torch.nn.functional.conv3d(
+                    lat, W, padding=1))
+                bound_ms, bound_by = _bound(p, shape, name)
+                line += (f" F.conv3d {lib_ms:.4f} ms; bound {bound_ms:.4f} "
+                         f"ms ({bound_by})")
+                for kname, rec in records.items():
+                    if name == "float64" and shape == main_shape[kname]:
+                        rec.update(bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=lib_ms)
             print(line, flush=True)
-    return record
+    print(f"[3 kernels] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return records
 
 
 def _table(path: str):
@@ -158,30 +237,54 @@ def _rel_diff(a, b) -> float:
     return worst
 
 
-def phase_main(workdir: str):
+def _zero_counts():
+    from palace_torch.ops import structured_kernel as sk
+
+    sk.structured_apply_flat.launches = 0
+    sk.structured_apply_flat_v2.launches = 0
+
+
+def _counts():
+    from palace_torch.ops import structured_kernel as sk
+
+    return (sk.structured_apply_flat.launches,
+            sk.structured_apply_flat_v2.launches)
+
+
+def _durations(post: str) -> str:
+    with open(os.path.join(post, "palace.json")) as f:
+        dur = json.load(f)["ElapsedTime"]["Durations"]
+    return ", ".join(f"{k} {dur[k]:.2f} s" for k in (
+        "Operatorconstruction", "Setup", "Linearsolve", "Eigenvaluesolve",
+        "Postprocessing") if k in dur)
+
+
+def phase_driven(workdir: str):
     import numpy as np
     import torch
 
     import palace_torch
     from palace_torch.cases import write_slice_case
-    from palace_torch.ops.structured_kernel import structured_apply_flat
 
-    cfg = write_slice_case(os.path.join(workdir, "main"), 16, 3, tol=1e-8,
+    t_phase = time.perf_counter()
+    cfg = write_slice_case(os.path.join(workdir, "driven"), 16, 3, tol=1e-8,
                            max_its=200, device="GPU", verbose=0)
     torch.cuda.reset_peak_memory_stats()
-    structured_apply_flat.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     res = palace_torch.run(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = structured_apply_flat.launches
+    launches, other = _counts()
     peak = torch.cuda.max_memory_allocated()
     prov, info = res["provenance"], res["ksp"]
     check(res["num_dofs"] == 345744, f"unexpected dof count {res['num_dofs']}")
     check(prov.get("fine_level") == "structured",
           f"structured fine level did not engage ({prov})")
     check(prov.get("solver_path") == "device", f"solver path {prov}")
-    check(launches > 0, "structured kernel was never launched")
+    check(launches > 0, "structured_apply_flat was never launched")
+    check(other == 0, f"structured_apply_flat_v2 launched {other} times on "
+                      "the driven path")
     relres = info.get("col_relres", {})
     check(len(relres) == 8 and max(relres.values()) <= 1e-8,
           f"column relres {relres}")
@@ -199,34 +302,124 @@ def phase_main(workdir: str):
     post = res["post_dir"]
     for name in ("domain-E.csv", "error-indicators.csv", "port-S.csv"):
         _table(os.path.join(post, name))
-    with open(os.path.join(post, "palace.json")) as f:
-        dur = json.load(f)["ElapsedTime"]["Durations"]
-    print(f"[4 main] 16^3 hex p=3: {res['num_dofs']} dofs, 8 columns, "
+    print(f"[4 driven] 16^3 hex p=3: {res['num_dofs']} dofs, 8 columns, "
           f"iterations {info.get('total_its')} total, max relres "
-          f"{max(relres.values()):.3e}, host residual {worst:.3e}; kernel "
-          f"launches {launches}; operator construction "
-          f"{dur.get('Operatorconstruction', 0):.2f} s, solver setup "
-          f"{dur.get('Setup', 0):.2f} s, solve "
-          f"{dur.get('Linearsolve', 0):.2f} s, postprocessing "
-          f"{dur.get('Postprocessing', 0):.2f} s, run {wall:.2f} s; peak "
-          f"device memory {peak / 2 ** 30:.3f} GiB", flush=True)
+          f"{max(relres.values()):.3e}, host residual {worst:.3e}; "
+          f"structured_apply_flat launches {launches}; {_durations(post)}, "
+          f"run {wall:.2f} s; peak device memory {peak / 2 ** 30:.3f} GiB; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
-def phase_host_parity(workdir: str):
+def phase_driven_parity(workdir: str):
     import palace_torch
     from palace_torch.cases import write_slice_case
 
     tabs = {}
+    t0 = time.perf_counter()
     for device in ("GPU", "CPU"):
-        cfg = write_slice_case(os.path.join(workdir, f"small_{device}"), 4, 2,
-                               tol=1e-10, device=device, verbose=0)
+        cfg = write_slice_case(os.path.join(workdir, f"driven_{device}"), 4,
+                               2, tol=1e-10, device=device, verbose=0)
         res = palace_torch.run(cfg)
         tabs[device] = _table(os.path.join(res["post_dir"], "domain-E.csv"))
     rel = _rel_diff(tabs["GPU"], tabs["CPU"])
     check(rel <= 1e-8, f"domain-E GPU vs CPU relative difference {rel:.3e}")
-    print(f"[5 parity] 4^3 hex p=2: domain-E.csv GPU vs CPU max relative "
-          f"difference {rel:.3e}", flush=True)
+    print(f"[5 driven parity] 4^3 hex p=2: domain-E.csv GPU vs CPU max "
+          f"relative difference {rel:.3e}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_eigen(workdir: str):
+    import numpy as np
+    import torch
+
+    import palace_torch
+    from palace_torch.cases import write_eigen_case
+
+    tol = 1e-8
+    t_phase = time.perf_counter()
+    cfg = write_eigen_case(os.path.join(workdir, "eigen"), 12, 3, tol=tol,
+                           device="GPU", verbose=0)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = palace_torch.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    other, launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    prov = res["provenance"]
+    check(res["num_dofs"] == 147852, f"unexpected dof count {res['num_dofs']}")
+    check(prov.get("eigen_path") == "device-lanczos", f"eigen path {prov}")
+    check(prov.get("fine_level") == "structured",
+          f"structured fine level did not engage ({prov})")
+    check(launches > 0, "structured_apply_flat_v2 was never launched")
+    check(other == 0, f"structured_apply_flat launched {other} times on the "
+                      "eigenmode path")
+    f = np.real(res["frequencies_ghz"])
+    f101 = C0 / (2 * CAVITY_L * math.sqrt(CAVITY_EPS)) * math.sqrt(2) / 1e9
+    f111 = C0 / (2 * CAVITY_L * math.sqrt(CAVITY_EPS)) * math.sqrt(3) / 1e9
+    ref = np.array([f101, f101, f101, f111])
+    check(len(f) == 4, f"{len(f)} modes returned")
+    ferr = np.abs(f - ref) / ref
+    check(ferr.max() <= 1e-7, f"frequencies {f} GHz vs analytic {ref}: "
+                              f"relative error {ferr.max():.3e} > 1e-7")
+    bkwd = np.asarray(res["backward_errors"])
+    check(bkwd.max() <= tol, f"backward errors {bkwd}")
+
+    # Independent host residual of every pair (scipy only), free rows.
+    from palace_torch.config import ValueType
+
+    sop = res["sop"]
+    K, M = sop.stiffness_csr(), sop.mass_csr()
+    free = ~sop.ess_mask
+    fscale = sop.iodata.units.scale_factor(ValueType.FREQUENCY)
+    Kn, Mn = abs(K).sum(axis=0).max(), abs(M).sum(axis=0).max()
+    worst = 0.0
+    for i in range(res["modes"].shape[1]):
+        x = res["modes"][:, i]
+        lam = (2 * math.pi * complex(res["frequencies_ghz"][i]) / fscale) ** 2
+        r = (K @ x - lam * (M @ x))[free]
+        worst = max(worst, float(np.linalg.norm(r) / (
+            (Kn + abs(lam) * Mn) * np.linalg.norm(x))))
+    check(worst <= 10 * tol, f"host residual {worst:.3e} > {10 * tol:.0e}")
+    post = res["post_dir"]
+    for name in ("eig.csv", "domain-E.csv", "error-indicators.csv"):
+        _table(os.path.join(post, name))
+    print(f"[6 eigen] 12^3 hex p=3: {res['num_dofs']} dofs, Re f "
+          f"{', '.join(f'{v:.9f}' for v in f)} GHz (analytic {f101:.9f} x3, "
+          f"{f111:.9f}; max relative error {ferr.max():.3e}), max backward "
+          f"error {bkwd.max():.3e}, host residual {worst:.3e}; Lanczos "
+          f"restarts {prov.get('lanczos_restarts')}, FGMRES iterations "
+          f"{prov.get('ksp_iterations')}; structured_apply_flat_v2 launches "
+          f"{launches}; {_durations(post)}, run {wall:.2f} s; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def phase_eigen_parity(workdir: str):
+    import numpy as np
+
+    import palace_torch
+    from palace_torch.cases import write_eigen_case
+
+    freqs = {}
+    t0 = time.perf_counter()
+    for device in ("GPU", "CPU"):
+        cfg = write_eigen_case(os.path.join(workdir, f"eigen_{device}"), 3, 2,
+                               tol=1e-5, device=device, verbose=0)
+        res = palace_torch.run(cfg)
+        check(res["provenance"].get("eigen_path") == "device-lanczos",
+              f"eigen path {res['provenance']}")
+        freqs[device] = _table(os.path.join(res["post_dir"], "eig.csv"))[:, 1]
+    rel = float(np.abs(freqs["GPU"] - freqs["CPU"]).max()
+                / np.abs(freqs["CPU"]).max())
+    check(rel <= 1e-10, f"eig.csv Re f GPU vs CPU relative difference "
+                        f"{rel:.3e}")
+    print(f"[7 eigen parity] 3^3 hex p=2: eig.csv Re f GPU vs CPU max "
+          f"relative difference {rel:.3e}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -235,21 +428,28 @@ def main() -> int:
 
         card = phase_card()
         phase_build()
-        record = phase_kernels()
+        records = phase_kernels()
         with tempfile.TemporaryDirectory() as workdir:
-            launches = phase_main(workdir)
-            phase_host_parity(workdir)
+            launches = {"structured_apply_flat": phase_driven(workdir)}
+            phase_driven_parity(workdir)
+            launches["structured_apply_flat_v2"] = phase_eigen(workdir)
+            phase_eigen_parity(workdir)
     except SmokeFailure as e:
         print(f"FAILED: {e}", flush=True)
         return 1
     except ImportError as e:
         print(f"FAILED: {e} (run from the repository root)", flush=True)
         return 1
+    source = {"structured_apply_flat": (
+        "palace_torch/csrc/structured_apply.cu",
+        "palace_tpu/ops/pallas_structured.py:241"),
+        "structured_apply_flat_v2": (
+        "palace_torch/csrc/structured_apply_v2.cu",
+        "palace_tpu/ops/pallas_structured.py:151")}
     kernels = {"kernels": [dict(
-        name="structured_apply_flat", route="cuda",
-        source="palace_torch/csrc/structured_apply.cu",
-        replaces="palace_tpu/ops/pallas_structured.py:241",
-        launches=launches, **record)]}
+        name=name, route="cuda", source=source[name][0],
+        replaces=source[name][1], launches=launches[name], **records[name])
+        for name in ("structured_apply_flat", "structured_apply_flat_v2")]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

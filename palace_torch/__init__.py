@@ -2,11 +2,15 @@
 
 Runs the driven frequency sweep (config -> mesh -> Nedelec space ->
 term-structured system -> blocked FGMRES + p-multigrid -> port, energy and
-error-indicator tables) on one NVIDIA GPU or on the CPU, with the same JSON
-configuration as palace_tpu.  On uniform PEC box hex meshes the fine-level
-operator runs through a hand-written CUDA kernel (csrc/structured_apply.cu).
-Imports torch, never jax; shares palace_tpu's jax-free host modules (config,
-mesh, finite-element spaces, materials, lumped ports, tables).
+error-indicator tables) and the eigenmode solve (block Lanczos over the same
+solver, or host ARPACK -> eig, energy and error-indicator tables) on one
+NVIDIA GPU or on the CPU, with the same JSON configuration as palace_tpu.  On
+uniform PEC box hex meshes the fine-level operator runs through hand-written
+CUDA kernels (csrc/structured_apply.cu for the driven sweep,
+csrc/structured_apply_v2.cu for the eigensolver).  Imports torch, never jax,
+and nothing of palace_tpu: the jax-free host modules it needs (config, mesh,
+finite-element spaces, materials, lumped ports, tables) are copies kept in
+this package.
 
     import palace_torch
     palace_torch.run("config.json")

@@ -9,8 +9,8 @@ def run(config_path: str, output_dir: str | None = None, dry_run: bool = False):
 
     Returns the driver's result object (driver-specific measurements; the
     driven driver's dict also carries the solve provenance)."""
-    from palace_tpu.config import IoData
-    from palace_tpu.utils import provenance, timers
+    from palace_torch.config import IoData
+    from palace_torch.utils import provenance, timers
     from palace_torch.device import resolve_device
     from palace_torch.drivers import get_driver
     from palace_torch.fem.operators import QuadraturePolicy, _env_policy

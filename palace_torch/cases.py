@@ -1,12 +1,18 @@
 """Generated input decks.
 
-`write_slice_case` writes the configuration the port's main path is checked
-on: a 24 mm PEC cavity meshed as a uniform n^3 hex box, one lossy dielectric
-(eps_r 2.0, tan delta 0.01), a z-directed current dipole near the centre, and
-an 8-point 2.0-5.5 GHz sweep (one frequency block, below the first cavity
-resonance near 6.25 GHz) solved by FGMRES + geometric multigrid.  On this
-case every driven term is a uniform domain table, so the structured fine
-level engages.
+Both cases use the same cavity: a 24 mm PEC cube meshed as a uniform n^3 hex
+box, filled with one dielectric of eps_r 2.0 (first modes: f_101 =
+c0 / (2 L sqrt(2)) = 6.245676 GHz, triply degenerate, and f_111 =
+7.649360 GHz).  On this mesh every term is a uniform domain table, so the
+structured fine level engages.
+
+`write_slice_case` writes the driven check of the port's first path: tan
+delta 0.01, a z-directed current dipole near the centre, and an 8-point
+2.0-5.5 GHz sweep (one frequency block, below the first resonance) solved by
+FGMRES + geometric multigrid.  `write_eigen_case` writes the eigenmode check:
+the cavity made lossless (tan delta 0, no ports, so the linear branch runs),
+the 4 modes nearest 5.0 GHz at Tol 1e-8, with the iterative (GMG) inner
+solver by default.
 """
 
 from __future__ import annotations
@@ -15,34 +21,53 @@ import json
 import os
 
 
-def write_slice_case(directory: str, n: int, order: int, *, tol: float = 1e-8,
-                     max_its: int = 200, device: str = "CPU",
-                     verbose: int = 1) -> str:
-    """Write box.msh and case.json into `directory`; returns the config path."""
-    from palace_tpu.mesh import gmsh_write
-    from palace_tpu.mesh.generate import box_hex
+def _write(directory: str, n: int, problem: dict, material: dict,
+           solver: dict, domains: dict | None = None) -> str:
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_hex
 
     os.makedirs(directory, exist_ok=True)
     gmsh_write.write(box_hex(n, n, n, lx=24.0, ly=24.0, lz=24.0),
                      os.path.join(directory, "box.msh"))
     cfg = {
-        "Problem": {"Type": "Driven", "Verbose": verbose, "Output": "postpro"},
+        "Problem": dict(problem, Output="postpro"),
         "Model": {"Mesh": "box.msh", "L0": 1.0e-3},
-        "Domains": {
-            "Materials": [{"Attributes": [1], "Permeability": 1.0,
-                           "Permittivity": 2.0, "LossTan": 0.01}],
-            "CurrentDipole": [{"Index": 1, "Moment": 1.0,
-                               "Center": [11.0, 12.5, 13.0],
-                               "Direction": [0.0, 0.0, 1.0]}],
-        },
+        "Domains": dict({"Materials": [dict({"Attributes": [1]},
+                                            **material)]},
+                        **(domains or {})),
         "Boundaries": {"PEC": {"Attributes": [1, 2, 3, 4, 5, 6]}},
-        "Solver": {
-            "Order": order, "Device": device,
-            "Driven": {"MinFreq": 2.0, "MaxFreq": 5.5, "FreqStep": 0.5},
-            "Linear": {"Type": "GMG", "Tol": tol, "MaxIts": max_its},
-        },
+        "Solver": solver,
     }
     path = os.path.join(directory, "case.json")
     with open(path, "w") as f:
         json.dump(cfg, f, indent=1)
     return path
+
+
+def write_slice_case(directory: str, n: int, order: int, *, tol: float = 1e-8,
+                     max_its: int = 200, device: str = "GPU",
+                     verbose: int = 1) -> str:
+    """Write box.msh and case.json into `directory`; returns the config path."""
+    return _write(
+        directory, n, {"Type": "Driven", "Verbose": verbose},
+        {"Permeability": 1.0, "Permittivity": 2.0, "LossTan": 0.01},
+        {"Order": order, "Device": device,
+         "Driven": {"MinFreq": 2.0, "MaxFreq": 5.5, "FreqStep": 0.5},
+         "Linear": {"Type": "GMG", "Tol": tol, "MaxIts": max_its}},
+        {"CurrentDipole": [{"Index": 1, "Moment": 1.0,
+                            "Center": [11.0, 12.5, 13.0],
+                            "Direction": [0.0, 0.0, 1.0]}]})
+
+
+def write_eigen_case(directory: str, n: int, order: int, *, tol: float = 1e-8,
+                     modes: int = 4, target: float = 5.0,
+                     linear: str = "GMG", device: str = "GPU",
+                     verbose: int = 1) -> str:
+    """Write box.msh and case.json of the eigenmode case into `directory`;
+    returns the config path."""
+    return _write(
+        directory, n, {"Type": "Eigenmode", "Verbose": verbose},
+        {"Permeability": 1.0, "Permittivity": 2.0, "LossTan": 0.0},
+        {"Order": order, "Device": device,
+         "Eigenmode": {"N": modes, "Target": target, "Tol": tol},
+         "Linear": {"Type": linear}})

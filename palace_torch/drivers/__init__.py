@@ -1,21 +1,23 @@
-"""Problem drivers of the port (the driven sweep so far)."""
+"""Problem drivers of the port (driven sweep and eigenmode so far)."""
 
 from __future__ import annotations
 
 #: ROADMAP.md port-queue item of each problem type not ported yet.
-_QUEUE = {"Eigenmode": "eigenmode",
-          "Electrostatic": "electrostatic/magnetostatic/AMR",
+_QUEUE = {"Electrostatic": "electrostatic/magnetostatic/AMR",
           "Magnetostatic": "electrostatic/magnetostatic/AMR",
           "Transient": "transient/boundary-mode",
           "BoundaryMode": "transient/boundary-mode"}
 
 
 def get_driver(problem_type):
-    from palace_tpu.config import ProblemType
+    from palace_torch.config import ProblemType
     from palace_torch.utils import unported
 
     if problem_type is ProblemType.DRIVEN:
         from palace_torch.drivers.driven import solve
+        return solve
+    if problem_type is ProblemType.EIGENMODE:
+        from palace_torch.drivers.eigenmode import solve
         return solve
     unported(f"The {problem_type.value} driver",
              _QUEUE.get(problem_type.value, "Modules to port"))

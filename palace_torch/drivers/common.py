@@ -9,9 +9,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from palace_tpu.config import IoData
-from palace_tpu.mesh.mesh import Mesh, load_mesh
-from palace_tpu.post.tables import Column, Table
+from palace_torch.config import IoData
+from palace_torch.mesh.mesh import Mesh, load_mesh
+from palace_torch.post.tables import Column, Table
 
 
 def print_log(iodata: IoData, msg: str):
@@ -28,14 +28,14 @@ def prepare_mesh(iodata: IoData) -> Mesh:
     iodata.set_units_from_mesh(float((bbmax - bbmin).max()))
     mesh.scale_coordinates(iodata.units.mesh_length_scale)
     if iodata.model.refinement.uniform_ref_levels > 0:
-        from palace_tpu.mesh.refine import refine_uniform
+        from palace_torch.mesh.refine import refine_uniform
 
         mesh = refine_uniform(mesh, iodata.model.refinement.uniform_ref_levels)
     if iodata.model.crack_bdr_elements:
-        from palace_tpu.mesh.crack import (crack_attributes,
+        from palace_torch.mesh.crack import (crack_attributes,
                                            crack_internal_boundaries,
                                            local_edge_split)
-        from palace_tpu.mesh.mfem_refine import (is_pure_tet,
+        from palace_torch.mesh.mfem_refine import (is_pure_tet,
                                                  seam_bisection_refine)
 
         attrs = crack_attributes(iodata)
@@ -73,7 +73,7 @@ def prepare_mesh(iodata: IoData) -> Mesh:
             print_log(iodata, f"  WARNING: {info.n_interior_seam_edges} "
                               "interior seam edges remain coupled")
     if iodata.boundaries.periodic:
-        from palace_tpu.mesh.periodic import apply_periodic
+        from palace_torch.mesh.periodic import apply_periodic
 
         n = apply_periodic(mesh, iodata.boundaries.periodic,
                            iodata.units.mesh_length_scale)

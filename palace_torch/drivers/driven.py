@@ -24,15 +24,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from palace_tpu.config import IoData, ValueType
-from palace_tpu.post.tables import Column, Table
-from palace_tpu.utils import provenance, timers
+from palace_torch.config import IoData, ValueType
 from palace_torch.drivers.common import (
     make_output_dir, nondim_point, prepare_mesh, print_log,
     write_error_indicators,
 )
 from palace_torch.models.spaceoperator import SpaceOperator
-from palace_torch.utils import unported
+from palace_torch.post.tables import Column, Table
+from palace_torch.utils import provenance, timers, unported
 
 
 def driven_samples_ghz(iodata: IoData) -> List[float]:
@@ -149,7 +148,7 @@ def measure_step(sop: SpaceOperator, E: np.ndarray, omega: float,
         m.ports[idx] = pm
 
     if probe_locs is not None:
-        from palace_tpu.fem import evaluation
+        from palace_torch.fem import evaluation
 
         m.probe_E = evaluation.eval_nd(sop.space, E, probe_locs, which="value")
         m.probe_B = evaluation.eval_nd(sop.space, E, probe_locs,
@@ -194,11 +193,10 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
     (result dict, eta2 indicator steps, step energies).  The result also
     carries the SpaceOperator, the solution vectors, the device solver's
     info and the solve provenance."""
-    from palace_tpu.fem import evaluation
-    from palace_tpu.post import metadata
+    from palace_torch.fem import evaluation
     from palace_torch.fem.estimators import (curl_flux_indicators,
                                              grad_flux_indicators)
-    from palace_torch.post.metadata import save_timing
+    from palace_torch.post import metadata
 
     if iodata.solver.driven.adaptive_tol > 0.0:
         unported("The adaptive PROM sweep (AdaptiveTol > 0)", "adaptive PROM")
@@ -270,7 +268,7 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
     metadata.save_excitations(post_dir, excitations)
     ksp_info = sweep_uniform_device._last_info or {}
     metadata.save_solver(post_dir, len(sols), ksp_info.get("total_its", 0))
-    save_timing(post_dir)
+    metadata.save_timing(post_dir)
     return (dict(post_dir=post_dir, num_dofs=sop.space.num_dofs,
                  freqs_ghz=freqs_ghz, measurements=measurements, sop=sop,
                  solutions=sols, omegas=omegas, ksp=ksp_info,
@@ -372,7 +370,7 @@ def _direct_resolve_columns(iodata, sop: SpaceOperator, omegas, cols
                             ) -> Dict[Tuple[int, int], np.ndarray]:
     """Sparse-direct re-solve of specific (excitation, frequency-index)
     columns (one factorization per distinct omega)."""
-    from palace_tpu.linalg.ordering import dof_coordinates, splu_nd
+    from palace_torch.linalg.ordering import dof_coordinates, splu_nd
 
     K, C, M = sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr()
     coords = dof_coordinates(sop.space)
@@ -392,7 +390,7 @@ def sweep_uniform_direct(iodata, sop: SpaceOperator, omegas, excitations,
                          skip=0) -> Dict[Tuple[int, int], np.ndarray]:
     """Frequency loop with one nested-dissection-ordered sparse-direct
     factorization per frequency, reused across excitations."""
-    from palace_tpu.linalg.ordering import dof_coordinates, splu_nd
+    from palace_torch.linalg.ordering import dof_coordinates, splu_nd
 
     K, C, M = sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr()
     rhs1 = {ex: sop.rhs1(ex) for ex in excitations}

@@ -13,12 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from palace_tpu.fem.nd import NDSpace
-from palace_tpu.mesh import geometry as geom_mod
+from palace_torch.fem.nd import NDSpace
 from palace_torch.fem.nd_operators import nd_operator
 from palace_torch.fem.operators import default_qorder
 from palace_torch.linalg.iterative import cg
 from palace_torch.linalg.smoothers import jacobi
+from palace_torch.mesh import geometry as geom_mod
 from palace_torch.utils import unported
 
 
@@ -45,6 +45,29 @@ def _solver(op):
     return solve
 
 
+def _phys_rows(Vref: np.ndarray, T: np.ndarray) -> np.ndarray:
+    """Physical basis values as (e, n, q * s) rows: X[e, n, (q, s)] =
+    sum_r Vref[q, n, r] T[e, q, r, s] (Vref (q, n, r), T (e, q, r, s)).
+    Every per-element contraction below is then a batched BLAS product."""
+    X = np.matmul(Vref[None], T)  # (e, q, n, s)
+    e, q, n, s = X.shape
+    return np.ascontiguousarray(X.transpose(0, 2, 1, 3)).reshape(e, n, q * s)
+
+
+def _at_points(X: np.ndarray, ue: np.ndarray) -> np.ndarray:
+    """sum_n ue[e, n] X[e, n, :] -> (e, q * s), for real or complex ue."""
+    def mv(u):
+        return np.matmul(u[:, None, :], X)[:, 0, :]
+    return mv(ue.real) + 1j * mv(ue.imag) if np.iscomplexobj(ue) else mv(ue)
+
+
+def _moments(X: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """sum_(q, s) X[e, n, (q, s)] f[e, (q, s)] -> (e, n), real or complex f."""
+    def mv(g):
+        return np.matmul(X, g[:, :, None])[:, :, 0]
+    return mv(f.real) + 1j * mv(f.imag) if np.iscomplexobj(f) else mv(f)
+
+
 def _matsqrt_batch(A: np.ndarray) -> np.ndarray:
     """Principal square roots of a batch of symmetric PSD tensors."""
     w, V = np.linalg.eigh(0.5 * (A + np.swapaxes(A, -1, -2)))
@@ -58,7 +81,7 @@ def _rt_flux_setup(space: NDSpace, materials, device):
     cache = getattr(space, "_torch_gradflux_cache", None)
     if cache is not None:
         return cache
-    from palace_tpu.fem.rt import RTSpace
+    from palace_torch.fem.rt import RTSpace
     from palace_torch.ops.partial import BucketTables, PAOperator
 
     mesh = space.mesh
@@ -71,16 +94,18 @@ def _rt_flux_setup(space: NDSpace, materials, device):
         gf = geom_mod.compute(mesh.nodes, b, q)
         V, _ = space.basis_tables(b.geom, gf.qpts)
         Vr = rt.basis_tables(b.geom, gf.qpts)  # (nq, ndr, sdim)
-        ndphys = np.einsum("eqrs,qnr->eqns", gf.Jinv, V)  # J^-T u_ref
-        rtphys = np.einsum("eqsr,qnr->eqns", gf.J, Vr) / gf.detJ[
-            :, :, None, None]  # signed Piola J w_ref / detJ
+        ndphys = _phys_rows(V, gf.Jinv)  # J^-T u_ref
+        # Signed Piola J w_ref / detJ.
+        rtphys = _phys_rows(Vr, np.swapaxes(gf.J, -1, -2)
+                            / gf.detJ[:, :, None, None])
         if rt.elem_signs[bi] is not None:
-            rtphys = rtphys * rt.elem_signs[bi][:, None, :, None]
+            rtphys = rtphys * rt.elem_signs[bi][:, :, None]
         eps = materials.attr_tensor(
             {a: np.real(t) for a, t in materials.permittivity.items()},
             b.attr)[:, :sdim, :sdim]
         setup.append((gf, ndphys, rtphys, eps, bi))
-        A = np.einsum("eqns,eqms,eq->enm", rtphys, rtphys, gf.wdetJ)
+        w = np.repeat(gf.wdetJ, sdim, axis=1)[:, None, :]
+        A = np.matmul(rtphys * w, rtphys.transpose(0, 2, 1))
         mass_tables.append((rt.elem_dofs[bi], A))
     Mrt = PAOperator(rt.num_dofs,
                      [BucketTables(gidx=g, A=A) for g, A in mass_tables],
@@ -106,10 +131,11 @@ def grad_flux_indicators(space: NDSpace, materials, E: np.ndarray,
         ue = E[space.elem_dofs[bi]]
         if signs_list[bi] is not None:
             ue = ue * signs_list[bi]
-        Eq = np.einsum("eqns,en->eqs", ndphys, ue)
+        Eq = _at_points(ndphys, ue).reshape(gf.wdetJ.shape + (-1,))
         per_bucket.append((gf, rtphys, eps, Eq, bi))
         flux = np.einsum("est,eqt->eqs", eps, Eq)
-        c = np.einsum("eqns,eqs,eq->en", rtphys, flux, gf.wdetJ)
+        c = _moments(rtphys, (flux * gf.wdetJ[..., None]).reshape(
+            flux.shape[0], -1))
         np.add.at(rows_b, rt.elem_dofs[bi].ravel(), c.ravel())
     D = solve(rows_b.real) + (1j * solve(rows_b.imag) if cplx else 0.0)
 
@@ -117,7 +143,7 @@ def grad_flux_indicators(space: NDSpace, materials, E: np.ndarray,
     ofs = 0
     for (gf, rtphys, eps, Eq, bi) in per_bucket:
         b = mesh.buckets[bi]
-        Dq = np.einsum("eqns,en->eqs", rtphys, D[rt.elem_dofs[bi]])
+        Dq = _at_points(rtphys, D[rt.elem_dofs[bi]]).reshape(Eq.shape)
         sq = _matsqrt_batch(eps)
         isq = _matsqrt_batch(np.linalg.inv(eps))
         diff = (np.einsum("est,eqt->eqs", sq, Eq)
@@ -152,7 +178,7 @@ def curl_flux_indicators(space: NDSpace, materials, E: np.ndarray,
             gf = geom_mod.compute(mesh.nodes, b, q)
             V, C = space.basis_tables(b.geom, gf.qpts)
             muinv = materials.attr_tensor(materials.inv_permeability, b.attr)
-            vphys = np.einsum("eqrs,qnr->eqns", gf.Jinv, V)
+            vphys = _phys_rows(V, gf.Jinv)
             cache.append((gf, C, muinv, vphys))
         Mop = nd_operator(space, mass_coef={int(a): np.eye(3)
                                             for a in mesh.attributes()},
@@ -170,7 +196,8 @@ def curl_flux_indicators(space: NDSpace, materials, E: np.ndarray,
         curl = np.einsum("sreq,eqr->eqs", gf.Jp, curl_ref) / gf.detJ[..., None]
         per_bucket.append(curl)
         flux = np.einsum("est,eqt->eqs", muinv[:, :3, :3], curl)
-        c = np.einsum("eqns,eqs,eq->en", vphys, flux, gf.wdetJ)
+        c = _moments(vphys, (flux * gf.wdetJ[..., None]).reshape(
+            flux.shape[0], -1))
         if signs_list[bi] is not None:
             c = c * signs_list[bi]
         np.add.at(b_vec, space.elem_dofs[bi].ravel(), c.ravel())
@@ -184,7 +211,7 @@ def curl_flux_indicators(space: NDSpace, materials, E: np.ndarray,
         we = w[space.elem_dofs[bi]]
         if signs_list[bi] is not None:
             we = we * signs_list[bi]
-        wq = np.einsum("eqns,en->eqs", vphys, we)
+        wq = _at_points(vphys, we).reshape(curl.shape)
         mu = np.linalg.inv(muinv[:, :3, :3])
         diff = curl - np.einsum("est,eqt->eqs", mu, wq)
         mid = np.einsum("est,eqt->eqs", muinv[:, :3, :3], diff)

@@ -9,8 +9,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from palace_tpu.fem import reference as ref
-from palace_tpu.fem.evaluation import BoundaryTrace
+from palace_torch.fem import reference as ref
+from palace_torch.fem.evaluation import BoundaryTrace
 from palace_torch.ops.partial import BucketTables
 
 
@@ -25,7 +25,7 @@ class NDTraceBasis:
 
 
 def nd_trace_basis(space, tr: BoundaryTrace) -> NDTraceBasis:
-    from palace_tpu.utils import smallmat
+    from palace_torch.utils import smallmat
 
     mesh = space.mesh
     n, nq = tr.wdetJ.shape

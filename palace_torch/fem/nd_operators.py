@@ -14,10 +14,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from palace_tpu.fem import reference as ref
-from palace_tpu.fem.nd import NDSpace
-from palace_tpu.mesh import geometry
+from palace_torch.fem import reference as ref
+from palace_torch.fem.nd import NDSpace
 from palace_torch.fem.operators import _per_elem_tensor, default_qorder
+from palace_torch.mesh import geometry
 from palace_torch.ops.partial import BucketTables, PAOperator
 from palace_torch.utils import unported
 

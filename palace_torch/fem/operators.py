@@ -53,7 +53,7 @@ def default_qorder(p: int, geo_order: int, geom) -> int:
     """Quadrature order exact for 2 p (+ order(|J|) when the policy asks,
     + the policy's extra); order(|J|) is dim (g - 1) on simplices and dim g - 1 on
     tensor-product elements (MFEM's OrderW)."""
-    from palace_tpu.fem.reference import GEOM_DIM, Geom
+    from palace_torch.fem.reference import GEOM_DIM, Geom
 
     ow = 0
     g = geo_order

@@ -7,7 +7,9 @@ system.  The preconditioner is a p-multigrid V-cycle: 4th-kind Chebyshev
 smoothing with Hiptmair (discrete-gradient) auxiliary correction, Galerkin
 coarse levels P^T X_t P, and a host sparse-direct (scipy splu) coarse solve.
 On a uniform PEC box hex mesh the fine level is `StructuredTermApply`, which
-runs the hand-written flat-lattice kernel; otherwise `ElemTermOperator`.
+runs one of the two hand-written flat-lattice kernels (the caller's `layout`:
+"natural" for the driven sweep, "class" for the eigensolver); otherwise
+`ElemTermOperator`.
 
 PyTorch runs eagerly: the Arnoldi scan and the restart loop are Python loops,
 and the small (m+1) x m least-squares problems of each restart are solved on
@@ -211,7 +213,9 @@ def _safe_div(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 class BlockedDeviceSolver:
     """FGMRES + p-MG on `device` for term systems A(omega) x = b over a block
-    of frequencies."""
+    of frequencies.  `layout` is the lattice channel order of a structured
+    fine level ("natural" or "class", see `StructuredTermApply`); the
+    caller picks it, the result does not depend on it."""
 
     def __init__(self, space, materials_pec_attrs, terms: List[Term],
                  omegas: Sequence[float], ess_mask: np.ndarray, *,
@@ -220,11 +224,12 @@ class BlockedDeviceSolver:
                  use_aux: bool = True, coarsening: str = "Logarithmic",
                  max_levels: int = 100, max_block: int = 8,
                  log: Optional[Callable] = None,
-                 device: torch.device = torch.device("cpu")):
-        from palace_tpu.fem.h1 import H1Space
-        from palace_tpu.fem.nd import NDSpace
-        from palace_tpu.linalg.ndmg import nd_prolongation
+                 device: torch.device = torch.device("cpu"),
+                 layout: str = "natural"):
+        from palace_torch.fem.h1 import H1Space
+        from palace_torch.fem.nd import NDSpace
         from palace_torch.fem.nd_operators import nd_h1_gradient
+        from palace_torch.linalg.ndmg import nd_prolongation
         from palace_torch.ops.structured import StructuredTermApply
 
         self.device = dev = torch.device(device)
@@ -266,13 +271,13 @@ class BlockedDeviceSolver:
         if len(spaces) > 1:
             try:
                 self.structured = StructuredTermApply.build(
-                    space, terms, np.asarray(ess_mask), dev)
+                    space, terms, np.asarray(ess_mask), dev, layout=layout)
             except ValueError as e:
                 self.log(f"  device ksp: element fine level ({e})")
         if self.structured is not None:
             self._fine_perm = np.asarray(self.structured.perm)
-            self.log("  device ksp: structured fine level engaged "
-                     f"({len(self._fine_perm)} lattice dofs)")
+            self.log(f"  device ksp: structured fine level engaged ({layout} "
+                     f"layout, {len(self._fine_perm)} lattice dofs)")
 
         def f64(a):
             return torch.as_tensor(np.asarray(a, np.float64), device=dev)

@@ -18,18 +18,18 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from palace_tpu.config import IoData, ValueType
-from palace_tpu.fem.evaluation import boundary_trace
-from palace_tpu.fem.nd import NDSpace
-from palace_tpu.fem.reference import Geom
-from palace_tpu.mesh.mesh import Mesh, canonicalize_simplices
-from palace_tpu.models.lumpedport import build_lumped_ports
-from palace_tpu.models.materials import MaterialOperator
+from palace_torch.config import IoData, ValueType
+from palace_torch.fem.evaluation import boundary_trace
+from palace_torch.fem.nd import NDSpace
 from palace_torch.fem.nd_boundary import (
     NDTraceBasis, boundary_mass_bucket, boundary_rhs, nd_trace_basis,
 )
 from palace_torch.fem.nd_operators import nd_operator
 from palace_torch.fem.operators import default_qorder
+from palace_torch.fem.reference import Geom
+from palace_torch.mesh.mesh import Mesh, canonicalize_simplices
+from palace_torch.models.lumpedport import build_lumped_ports
+from palace_torch.models.materials import MaterialOperator
 from palace_torch.ops.partial import (
     BucketTables, PAOperator, signed_tables, tables_csr,
 )
@@ -90,7 +90,7 @@ class SpaceOperator:
         # Surface current sources (reference: surfacecurrentoperator.cpp).
         self._surface_currents = []
         for sc in iodata.boundaries.surface_currents:
-            from palace_tpu.models.lumpedport import (
+            from palace_torch.models.lumpedport import (
                 CoaxialElement, UniformElement)
 
             elems, tbs = [], []
@@ -296,8 +296,8 @@ class SpaceOperator:
                 out += boundary_rhs(tb, f, self.space.num_dofs)
         # Point current dipoles: rhs_n = -moment d . v_n(x0).
         for dp in self.iodata.domains.current_dipoles:
-            import palace_tpu.fem.reference as refmod
-            from palace_tpu.fem import evaluation
+            import palace_torch.fem.reference as refmod
+            from palace_torch.fem import evaluation
 
             x0 = np.asarray(dp.center, float) / self.iodata.units.mesh_length_scale
             loc = evaluation.PointLocator(self.mesh).locate(x0[None, :])[0]
@@ -341,7 +341,7 @@ class SpaceOperator:
     def port_power(self, idx: int, E: np.ndarray, omega: float) -> complex:
         """P = int (E x conj(H)) . n dS with H = mu^-1 B, B = -curl E/(i w),
         +n the direction of propagation into the domain."""
-        from palace_tpu.fem.evaluation import trace_nd
+        from palace_torch.fem.evaluation import trace_nd
 
         P = 0.0 + 0.0j
         for tb in self._port_trace_bases[idx]:

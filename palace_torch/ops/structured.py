@@ -7,8 +7,11 @@ u[c, ix, iy, iz] with C = 3 p^3 channels and every element-local dof is
 the JAX package runs it as a 3-D convolution with the stencil kernel W; the
 port runs it through the hand-written flat-lattice kernel
 (ops/structured_kernel.py), and keeps the convolution (`structured_apply_conv`)
-as a plain reference.  The top-boundary lattice planes (no owning cell) must
-be essential (PEC) dofs.
+as a plain reference.  The solver's term apply takes either lattice channel
+order: natural (`structured_apply_flat`, Pallas kernel #1's counterpart) or
+carry-class (`structured_apply_flat_v2`, Pallas kernel #2's counterpart).
+The top-boundary lattice planes (no owning cell) must be essential (PEC)
+dofs.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from palace_torch.ops.structured_kernel import (
-    from_flat, structured_apply_flat, structured_apply_lattice, to_flat,
+    _class_tables, from_flat, structured_apply_flat, structured_apply_flat_v2,
+    structured_apply_lattice, to_flat,
 )
 
 
@@ -32,7 +36,7 @@ def _channel_id(p: int, d: int, i: int, j: int, k: int) -> int:
 
 def hex_local_map(p: int):
     """Per local dof: (delta (3,) cell offset, channel id)."""
-    from palace_tpu.fem.nd_hex import hex_nd_dofs
+    from palace_torch.fem.nd_hex import hex_nd_dofs
 
     dofs = hex_nd_dofs(p)
     nd = len(dofs)
@@ -141,8 +145,8 @@ class StructuredNDOperator:
                       ) -> "StructuredNDOperator":
         """Direct constructor for a uniform PEC box grid: one reference-cell
         element matrix and the analytic PEC lattice mask, O(nd^2) host work."""
-        from palace_tpu.fem.nd import NDSpace
-        from palace_tpu.mesh.generate import box_hex
+        from palace_torch.fem.nd import NDSpace
+        from palace_torch.mesh.generate import box_hex
         from palace_torch.fem.nd_operators import nd_operator
 
         space1 = NDSpace(box_hex(1, 1, 1, lx=h, ly=h, lz=h), p)
@@ -206,27 +210,40 @@ def structured_apply_conv(W: torch.Tensor, lat: torch.Tensor,
     return torch.where(ess[None], 0, y)
 
 
+#: Lattice channel orders of `StructuredTermApply`.
+LAYOUTS = ("natural", "class")
+
+
 class StructuredTermApply:
     """Fine-level term apply for `BlockedDeviceSolver` on a uniform box hex
     mesh: y = sum_t coefs[t] * X_t u with every X_t the same stencil pattern,
     one flat-kernel launch per term on the real/imag-stacked (2F, C, Lu)
     batch, with no gather/scatter when the solver keeps its fine-level
-    vectors in lattice order (`perm`)."""
+    vectors in lattice order (`perm`).
+
+    `layout` picks the lattice channel order and with it the kernel:
+    "natural" (channels as `hex_local_map` numbers them) or "class" (the
+    carry-class order of `_class_tables`, folded into `perm`, so the class
+    layout costs no permutation per apply)."""
 
     def __init__(self, p: int, shape: Tuple[int, int, int],
                  Afs: List[torch.Tensor], ess_lat: torch.Tensor,
-                 perm: np.ndarray):
+                 perm: np.ndarray, layout: str = "natural"):
         self.p = p
         self.shape = tuple(shape)
-        self.Afs = Afs  # per-term (nd, nd), on the device
-        self.ess_lat = ess_lat  # (C, nx, ny, nz) bool, on the device
+        self.Afs = Afs  # per-term (nd, nd) in the layout's local order
+        self.ess_lat = ess_lat  # (C, nx, ny, nz) bool in the layout's order
         self.perm = perm  # (L,) lattice-order dof ids (L = C nx ny nz)
+        self.layout = layout
 
     @staticmethod
     def build(space, terms, ess_mask, device: torch.device,
-              dtype: torch.dtype = torch.float64) -> "StructuredTermApply":
+              dtype: torch.dtype = torch.float64,
+              layout: str = "natural") -> "StructuredTermApply":
         """Raises ValueError unless every term is a single uniform domain
         element table on a single-hex-bucket box grid."""
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown lattice layout {layout!r}")
         if len(space.mesh.buckets) != 1:
             raise ValueError("structured: single-bucket mesh required")
         gd = np.asarray(space.elem_dofs[0])
@@ -242,12 +259,17 @@ class StructuredTermApply:
                 A=np.real(np.asarray(A)), signs=None)])
             ops.append(StructuredNDOperator.build(space, fake, ess_mask))
         st0 = ops[0]
+        perm_c = np.arange(3 * st0.p ** 3)
+        Afs = [op.Af for op in ops]
+        if layout == "class":
+            perm_c, perm_l, _ = _class_tables(st0.p, st0.shape)
+            Afs = [Af[np.ix_(perm_l, perm_l)] for Af in Afs]
         return StructuredTermApply(
             st0.p, st0.shape,
-            [torch.as_tensor(op.Af, dtype=dtype, device=device).contiguous()
-             for op in ops],
-            torch.as_tensor(st0.ess_lat, device=device),
-            st0.lat_gdof.ravel())
+            [torch.as_tensor(Af, dtype=dtype, device=device).contiguous()
+             for Af in Afs],
+            torch.as_tensor(st0.ess_lat[perm_c], device=device),
+            st0.lat_gdof[perm_c].ravel(), layout)
 
     def __call__(self, coefs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """u: (L, F) complex in lattice order; coefs: (T, F) complex."""
@@ -258,10 +280,11 @@ class StructuredTermApply:
         real = torch.cat([lat.real, lat.imag], dim=0)
         real = torch.where(self.ess_lat[None], 0, real)
         u_flat = to_flat(real, self.p, self.shape)
+        kernel = (structured_apply_flat_v2 if self.layout == "class"
+                  else structured_apply_flat)
         y = torch.zeros_like(u)
         for t, Af in enumerate(self.Afs):
-            v = from_flat(structured_apply_flat(Af, u_flat, p=self.p,
-                                                shape=self.shape),
+            v = from_flat(kernel(Af, u_flat, p=self.p, shape=self.shape),
                           self.p, self.shape)
             v = torch.where(self.ess_lat[None], 0, v)
             vc = torch.complex(v[:Fc], v[Fc:]).reshape(Fc, -1).T

@@ -1,18 +1,22 @@
-"""Uniform box-hex ND apply on the flattened padded lattice: the hand-written
-Hopper kernel (csrc/structured_apply.cu), its plain PyTorch version, and the
-flat layout helpers.
+"""Uniform box-hex ND apply on the flattened padded lattice: the two
+hand-written Hopper kernels (csrc/structured_apply.cu, natural channel
+order; csrc/structured_apply_v2.cu, carry-class channel order), their plain
+PyTorch versions, and the flat layout helpers.
 
 The counterpart of palace_tpu/ops/pallas_structured.py (`_flat_tables`,
-`structured_apply_flat`, `to_flat`, `from_flat`, `structured_apply_lattice`).
-On the flattened padded lattice (C, (nx+1)(ny+1)(nz+1)) a cell shift by
-delta in {0,1}^3 is a constant flat offset, so "u at (chan_b, n + delta_b)
-for all cells n" is one contiguous slice u_flat[chan_b, off_b : off_b + Lp];
-a per-column mask kills the pad-plane columns, which are not real cells.
+`_class_tables`, `structured_apply_flat`, `structured_apply_flat_v2`,
+`v2_tables`, `to_flat`, `from_flat`, `structured_apply_lattice`,
+`structured_apply_lattice_v2`).  On the flattened padded lattice
+(C, (nx+1)(ny+1)(nz+1)) a cell shift by delta in {0,1}^3 is a constant flat
+offset, so "u at (chan_b, n + delta_b) for all cells n" is one contiguous
+slice u_flat[chan_b, off_b : off_b + Lp]; a per-column mask kills the
+pad-plane columns, which are not real cells.
 
-`structured_apply_flat` is the wrapper: a CPU tensor goes to the plain
-version `structured_apply_flat_ref`; a CUDA tensor launches the kernel (built
-with nvcc on first use into build/palace_torch_kernels/ and bound through
-ctypes) or raises.  `structured_apply_flat.launches` counts kernel launches.
+`structured_apply_flat` and `structured_apply_flat_v2` are the wrappers: a
+CPU tensor goes to the plain version (`*_ref`); a CUDA tensor launches the
+kernel (built with nvcc on first use into build/palace_torch_kernels/ and
+bound through ctypes) or raises.  Each wrapper's `launches` attribute counts
+its kernel launches.
 """
 
 from __future__ import annotations
@@ -23,14 +27,14 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "structured_apply.cu")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "palace_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -99,22 +103,34 @@ def _check(Af: torch.Tensor, u_flat: torch.Tensor, p: int, shape) -> None:
         raise ValueError("Af and u_flat must share dtype and device")
 
 
+@functools.lru_cache(maxsize=None)
+def _gather_index(p: int, shape: Tuple[int, int, int],
+                  device: torch.device) -> torch.Tensor:
+    """Flat (nd * Lp) index into a (C * Lu) row of u_flat: local dof n,
+    column m reads u[chan[n], offs[n] + m]."""
+    chan, offs, _, _, Lp, Lu, _ = _flat_tables(p, shape)
+    src = np.asarray(chan, np.int64) * Lu + np.asarray(offs, np.int64)
+    return torch.as_tensor((src[:, None] + np.arange(Lp)[None, :]).ravel(),
+                           device=device)
+
+
 def structured_apply_flat_ref(Af: torch.Tensor, u_flat: torch.Tensor, *,
                               p: int, shape) -> torch.Tensor:
-    """Plain PyTorch version: gather by slices, Af @ ul, mask, slice-add
-    (the arithmetic of the TPU kernel body, in any dtype and device)."""
+    """Plain PyTorch version: gather by local dof, Af @ ul, mask,
+    scatter-add in local-dof order (the arithmetic of the TPU kernel body,
+    in any dtype and device)."""
     shape = tuple(shape)
     _check(Af, u_flat, p, shape)
-    chan, offs, mask, _, Lp, _, _ = _flat_tables(p, shape)
+    _, _, mask, _, Lp, _, _ = _flat_tables(p, shape)
+    idx = _gather_index(p, shape, u_flat.device)
+    B, C, Lu = u_flat.shape
     nd = Af.shape[0]
-    ul = torch.stack([u_flat[:, chan[n], offs[n]:offs[n] + Lp]
-                      for n in range(nd)], dim=1)  # (B, nd, Lp)
+    ul = u_flat.reshape(B, C * Lu).index_select(1, idx).reshape(B, nd, Lp)
     vl = torch.matmul(Af, ul) * torch.as_tensor(mask, dtype=u_flat.dtype,
                                                device=u_flat.device)
-    y = torch.zeros_like(u_flat)
-    for n in range(nd):
-        y[:, chan[n], offs[n]:offs[n] + Lp] += vl[:, n]
-    return y
+    y = torch.zeros((B, C * Lu), dtype=u_flat.dtype, device=u_flat.device)
+    y.index_add_(1, idx, vl.reshape(B, nd * Lp))
+    return y.reshape(B, C, Lu)
 
 
 # ---------------------------------------------------------------------------
@@ -133,36 +149,103 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_kernels() -> Tuple[str, str]:
-    """Compile csrc/structured_apply.cu into a shared library under
-    build/palace_torch_kernels/ (once per source content).  Returns
-    (library path, compiler log; empty when the library was already built)."""
-    with open(SOURCE, "rb") as f:
+def _sources():
+    return sorted(os.path.join(CSRC_DIR, n) for n in os.listdir(CSRC_DIR)
+                  if n.endswith(".cu"))
+
+
+def _library_path(source: str) -> str:
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libstructured_apply_{digest}.so")
-    if os.path.exists(out):
-        return out, ""
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+
+
+def build_kernels() -> List[Tuple[str, str]]:
+    """Compile every csrc/*.cu into its own shared library under
+    build/palace_torch_kernels/ (once per source content), one nvcc process
+    per source, all started together.  Returns [(library path, compiler log;
+    empty when the library was already built)] in source order."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    jobs = []
+    for src in _sources():
+        out = _library_path(src)
+        if os.path.exists(out):
+            jobs.append((out, None, None))
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((out, tmp, proc))
+    built, failed = [], []
+    for out, tmp, proc in jobs:
+        if proc is None:
+            built.append((out, ""))
+            continue
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for "
+                          f"{os.path.basename(out)}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        built.append((out, log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
+
+
+#: (pointer, int) argument counts of each source's entry points
+#: palace_<stem>_f64 and palace_<stem>_f32; the stream pointer comes last.
+_ENTRY_ARGS = {"structured_apply": (7, 5), "structured_apply_v2": (8, 6)}
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    path, _ = build_kernels()
-    lib = ctypes.CDLL(path)
-    for name in ("palace_structured_apply_f64", "palace_structured_apply_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+def _library(stem: str) -> ctypes.CDLL:
+    """The built library of csrc/<stem>.cu (every source is built on the
+    first call), with its entry points' ctypes signatures set."""
+    build_kernels()
+    lib = ctypes.CDLL(_library_path(os.path.join(CSRC_DIR, f"{stem}.cu")))
+    n_ptr, n_int = _ENTRY_ARGS[stem]
+    for dtype in ("f64", "f32"):
+        fn = getattr(lib, f"palace_{stem}_{dtype}")
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def _check_launchable(Af: torch.Tensor, u_flat: torch.Tensor, p: int,
+                      shape) -> None:
+    """Raise unless a kernel can take these tensors: CUDA, float64 or
+    float32, contiguous, of the layout's shapes."""
+    if u_flat.device.type != "cuda":
+        raise ValueError(f"unsupported device {u_flat.device}")
+    _check(Af, u_flat, p, shape)
+    if u_flat.dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"kernel takes float64 or float32, not {u_flat.dtype}")
+    if not (Af.is_contiguous() and u_flat.is_contiguous()):
+        raise ValueError("Af and u_flat must be contiguous")
+
+
+def _pull_tables(rows, chans, offs, C: int):
+    """(arow, aoff) of a pull scatter: per channel, the E-vector rows landing
+    on it and their flat offsets, in the given order (-1 padded)."""
+    arow = np.full((C, _MAX_A), -1, np.int32)
+    aoff = np.zeros((C, _MAX_A), np.int32)
+    fill = np.zeros(C, np.int64)
+    for r, c, off in zip(rows, chans, offs):
+        if fill[c] >= _MAX_A:
+            raise ValueError(f"channel {c} has more than {_MAX_A} local dofs")
+        arow[c, fill[c]] = r
+        aoff[c, fill[c]] = off
+        fill[c] += 1
+    return arow, aoff
+
+
+def _on_device(device: torch.device, *pairs):
+    return tuple(torch.as_tensor(a, dtype=dt, device=device).contiguous()
+                 for a, dt in pairs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,23 +254,10 @@ def _device_tables(p: int, shape: Tuple[int, int, int], dtype: torch.dtype,
     """(mask, src, arow, aoff) on the device: src[j] = chan[j] Lu + off[j];
     arow/aoff list, per channel, the local dofs landing on it (-1 padded)."""
     chan, offs, mask, _, _, Lu, _ = _flat_tables(p, shape)
-    C = 3 * p ** 3
-    arow = np.full((C, _MAX_A), -1, np.int32)
-    aoff = np.zeros((C, _MAX_A), np.int32)
-    fill = np.zeros(C, np.int64)
-    for a, c in enumerate(chan):
-        if fill[c] >= _MAX_A:
-            raise ValueError(f"channel {c} has more than {_MAX_A} local dofs")
-        arow[c, fill[c]] = a
-        aoff[c, fill[c]] = offs[a]
-        fill[c] += 1
+    arow, aoff = _pull_tables(range(len(chan)), chan, offs, 3 * p ** 3)
     src = (np.asarray(chan) * Lu + np.asarray(offs)).astype(np.int32)
-
-    def dev(a, dt):
-        return torch.as_tensor(a, dtype=dt, device=device).contiguous()
-
-    return (dev(mask, dtype), dev(src, torch.int32), dev(arow, torch.int32),
-            dev(aoff, torch.int32))
+    return _on_device(device, (mask, dtype), (src, torch.int32),
+                      (arow, torch.int32), (aoff, torch.int32))
 
 
 def structured_apply_flat(Af: torch.Tensor, u_flat: torch.Tensor, *, p: int,
@@ -201,13 +271,7 @@ def structured_apply_flat(Af: torch.Tensor, u_flat: torch.Tensor, *, p: int,
     shape = tuple(int(s) for s in shape)
     if u_flat.device.type == "cpu":
         return structured_apply_flat_ref(Af, u_flat, p=p, shape=shape)
-    if u_flat.device.type != "cuda":
-        raise ValueError(f"unsupported device {u_flat.device}")
-    _check(Af, u_flat, p, shape)
-    if u_flat.dtype not in (torch.float64, torch.float32):
-        raise ValueError(f"kernel takes float64 or float32, not {u_flat.dtype}")
-    if not (Af.is_contiguous() and u_flat.is_contiguous()):
-        raise ValueError("Af and u_flat must be contiguous")
+    _check_launchable(Af, u_flat, p, shape)
     _, _, _, _, Lp, Lu, _ = _flat_tables(p, shape)
     B, C, _ = u_flat.shape
     nd = Af.shape[0]
@@ -215,7 +279,7 @@ def structured_apply_flat(Af: torch.Tensor, u_flat: torch.Tensor, *, p: int,
         raise ValueError(f"batch too large for the kernel grid (B={B})")
     mask, src, arow, aoff = _device_tables(p, shape, u_flat.dtype,
                                            u_flat.device)
-    lib = _library()
+    lib = _library("structured_apply")
     fn = (lib.palace_structured_apply_f64 if u_flat.dtype == torch.float64
           else lib.palace_structured_apply_f32)
     y = torch.empty_like(u_flat)
@@ -244,3 +308,173 @@ def structured_apply_lattice(sop, lat: torch.Tensor) -> torch.Tensor:
                                    shape=sop.shape)
     y = from_flat(y_flat, sop.p, sop.shape)
     return torch.where(ess[None], 0, y)
+
+
+# ---------------------------------------------------------------------------
+# Carry-class channel order: the layout of the second kernel
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _class_tables(p: int, shape: Tuple[int, int, int]):
+    """Carry-class-ordered tables (same tables as the TPU kernel's).
+
+    Per edge family d the channels (d, i, j, k) fall into four carry
+    classes by (j == 0, k == 0): A = (0,0), B = (0,>0), C = (>0,0),
+    D = (>0,>0).  Ordering channels [A, B, C, D] per family makes every
+    delta-group's channel set a union of <= 2 contiguous ranges, so the
+    E-vector gather (and the transposed scatter) is ~15 block copies of
+    consecutive rows instead of nd single-row copies.  Returns (perm_c
+    channel permutation, perm_l local-dof permutation, slices =
+    [(row0, nrows, chan0, flat_offset)]); permuting Af's rows and columns
+    by perm_l is the caller's job (`v2_tables`)."""
+    from palace_torch.ops.structured import hex_local_map
+
+    nx, ny, nz = shape
+    sx, sy = (ny + 1) * (nz + 1), nz + 1
+    deltas, chan = hex_local_map(p)
+    C = 3 * p ** 3
+
+    # Channel class order per family: A, B, C, D.
+    def chan_key(c):
+        d, r = divmod(c, p ** 3)
+        i, r2 = divmod(r, p * p)
+        j, k = divmod(r2, p)
+        cls = 0 if (j == 0 and k == 0) else (1 if j == 0 else
+                                             (2 if k == 0 else 3))
+        return (d, cls, i, j, k)
+
+    perm_c = np.asarray(sorted(range(C), key=chan_key), np.int64)
+    rank_c = np.empty(C, np.int64)
+    rank_c[perm_c] = np.arange(C)
+
+    # Local dofs ordered by (family, delta group, new channel rank).
+    def loc_key(n):
+        d = chan[n] // p ** 3
+        dj = tuple(deltas[n])
+        return (d, dj, rank_c[chan[n]])
+
+    perm_l = np.asarray(sorted(range(len(chan)), key=loc_key), np.int64)
+
+    # Contiguous (row-range, channel-range, offset) slices.
+    slices = []
+    r = 0
+    while r < len(perm_l):
+        n = perm_l[r]
+        off = int(deltas[n, 0] * sx + deltas[n, 1] * sy + deltas[n, 2])
+        c0 = int(rank_c[chan[n]])
+        ln = 1
+        while (r + ln < len(perm_l)):
+            n2 = perm_l[r + ln]
+            off2 = int(deltas[n2, 0] * sx + deltas[n2, 1] * sy
+                       + deltas[n2, 2])
+            if off2 != off or int(rank_c[chan[n2]]) != c0 + ln:
+                break
+            ln += 1
+        slices.append((r, ln, c0, off))
+        r += ln
+    return perm_c, perm_l, slices
+
+
+def v2_tables(sop) -> Tuple[np.ndarray, np.ndarray]:
+    """(Af_perm, perm_c) for the second kernel from a StructuredNDOperator:
+    the element matrix with rows and columns in carry-class local order, and
+    the channel permutation of the lattice."""
+    perm_c, perm_l, _ = _class_tables(sop.p, tuple(sop.shape))
+    Af = np.asarray(sop.Af)
+    return Af[np.ix_(perm_l, perm_l)], perm_c
+
+
+def structured_apply_flat_v2_ref(Af_perm: torch.Tensor,
+                                 u_flat_perm: torch.Tensor, *, p: int,
+                                 shape) -> torch.Tensor:
+    """Plain PyTorch version of the second kernel: gather the E-vector by
+    class slices, Af_perm @ ul, mask, slice-add (the arithmetic of the TPU
+    kernel body `_kernel_v2`, in any dtype and device)."""
+    shape = tuple(shape)
+    _check(Af_perm, u_flat_perm, p, shape)
+    _, _, mask, _, Lp, _, _ = _flat_tables(p, shape)
+    _, _, slices = _class_tables(p, shape)
+    ul = torch.cat([u_flat_perm[:, c0:c0 + nr, off:off + Lp]
+                    for (_, nr, c0, off) in slices], dim=1)  # (B, nd, Lp)
+    vl = torch.matmul(Af_perm, ul) * torch.as_tensor(
+        mask, dtype=u_flat_perm.dtype, device=u_flat_perm.device)
+    y = torch.zeros_like(u_flat_perm)
+    for (r0, nr, c0, off) in slices:
+        y[:, c0:c0 + nr, off:off + Lp] += vl[:, r0:r0 + nr]
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables_v2(p: int, shape: Tuple[int, int, int],
+                      dtype: torch.dtype, device: torch.device):
+    """(mask, slices, arow, aoff) on the device: slices (S, 4) int32 rows of
+    (row0, nrows, chan0, offset); arow/aoff list, per permuted channel, the
+    E-vector rows landing on it and their flat offsets (-1 padded)."""
+    _, _, mask, _, _, _, _ = _flat_tables(p, shape)
+    _, _, slices = _class_tables(p, shape)
+    rows = [r0 + i for (r0, nr, _, _) in slices for i in range(nr)]
+    chans = [c0 + i for (_, nr, c0, _) in slices for i in range(nr)]
+    offs = [off for (_, nr, _, off) in slices for _ in range(nr)]
+    arow, aoff = _pull_tables(rows, chans, offs, 3 * p ** 3)
+    return _on_device(device, (mask, dtype),
+                      (np.asarray(slices, np.int32), torch.int32),
+                      (arow, torch.int32), (aoff, torch.int32))
+
+
+def structured_apply_flat_v2(Af_perm: torch.Tensor, u_flat_perm: torch.Tensor,
+                             *, p: int, shape) -> torch.Tensor:
+    """y_flat = A @ u_flat on the flattened padded lattice with channels in
+    carry-class order (`_class_tables`) and Af_perm = Af[perm_l][:, perm_l]
+    (`v2_tables`).  Essential-dof masking is the caller's business.  CPU
+    tensors take the plain version; CUDA tensors (float32 or float64,
+    contiguous) launch the hand-written kernel."""
+    shape = tuple(int(s) for s in shape)
+    if u_flat_perm.device.type == "cpu":
+        return structured_apply_flat_v2_ref(Af_perm, u_flat_perm, p=p,
+                                            shape=shape)
+    _check_launchable(Af_perm, u_flat_perm, p, shape)
+    _, _, _, _, Lp, Lu, _ = _flat_tables(p, shape)
+    B, C, _ = u_flat_perm.shape
+    nd = Af_perm.shape[0]
+    if B * C > 65535 or B * max(C, nd) * Lu >= 2 ** 31:
+        raise ValueError(f"batch too large for the kernel grid (B={B})")
+    mask, slices, arow, aoff = _device_tables_v2(p, shape, u_flat_perm.dtype,
+                                                 u_flat_perm.device)
+    lib = _library("structured_apply_v2")
+    fn = (lib.palace_structured_apply_v2_f64
+          if u_flat_perm.dtype == torch.float64
+          else lib.palace_structured_apply_v2_f32)
+    vl = torch.empty((B, nd, Lp), dtype=u_flat_perm.dtype,
+                     device=u_flat_perm.device)
+    y = torch.empty_like(u_flat_perm)
+    stream = torch.cuda.current_stream(u_flat_perm.device).cuda_stream
+    err = fn(Af_perm.data_ptr(), u_flat_perm.data_ptr(), mask.data_ptr(),
+             vl.data_ptr(), y.data_ptr(), slices.data_ptr(), arow.data_ptr(),
+             aoff.data_ptr(), slices.shape[0], B, C, nd, Lp, Lu, stream)
+    if err != 0:
+        raise RuntimeError(f"structured_apply_v2 kernel launch failed: CUDA "
+                           f"error {err}")
+    structured_apply_flat_v2.launches += 1
+    return y
+
+
+structured_apply_flat_v2.launches = 0
+
+
+def structured_apply_lattice_v2(sop, lat: torch.Tensor) -> torch.Tensor:
+    """Masked apply on the (B, C, nx, ny, nz) lattice layout (natural
+    channel order in and out) through the second kernel: permute channels
+    into carry-class order, apply, permute back."""
+    Af_perm, perm_c = v2_tables(sop)
+    ess = torch.as_tensor(sop.ess_lat, device=lat.device)
+    free = torch.where(ess[None], 0, lat)
+    u_flat = to_flat(free[:, torch.as_tensor(perm_c, device=lat.device)],
+                     sop.p, sop.shape)
+    y_flat = structured_apply_flat_v2(
+        torch.as_tensor(Af_perm, dtype=lat.dtype,
+                        device=lat.device).contiguous(),
+        u_flat, p=sop.p, shape=sop.shape)
+    y = from_flat(y_flat, sop.p, sop.shape)
+    inv = torch.as_tensor(np.argsort(perm_c), device=lat.device)
+    return torch.where(ess[None], 0, y[:, inv])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the driven slice's time goes, on one CUDA GPU.
+"""Where a slice's time goes, on one CUDA GPU.
 
-Builds the slice case (palace_torch/cases.py, default 16^3 hex, Order 3) on
+--problem driven (default): builds the driven slice case
+(palace_torch/cases.py:write_slice_case, default 16^3 hex, Order 3) on
 cuda:0 and reports:
   1. solver setup under cProfile (host), top functions by cumulative time;
   2. one plain solve of the 8-column block (wall time, synchronized);
@@ -9,9 +10,22 @@ cuda:0 and reports:
      (exclusive time per component);
   4. one solve under torch.profiler: device busy time and top kernels;
   5. postprocessing (measurements + error indicators) under cProfile.
-Writes the report to chiprun_out/profile_slice.txt and prints it.
+Writes chiprun_out/profile_slice.txt.
 
-Usage (repository root):  python scripts/profile_torch_slice.py [--n 16] [--order 3]
+--problem eigen: builds the eigenmode case (write_eigen_case, default 12^3
+hex, Order 3, as in chip_smoke.py) and reports:
+  1. the shift-invert solver and div-free projector setup under cProfile;
+  2. one plain inner block solve (8 columns at the shift, synchronized);
+  3. the whole block Lanczos eigensolve with synchronizing timers around
+     its components (inner solves, fine K/M applies, host projection and
+     orthonormalization; the rest is the host Lanczos recurrence);
+  4. one inner block solve under torch.profiler: device busy time and top
+     kernels;
+  5. the modes' postprocessing (energies + error indicators) under cProfile.
+Writes chiprun_out/profile_eigen.txt.
+
+Each report is printed too.  Usage (repository root):
+    python scripts/profile_torch_slice.py [--problem eigen] [--n N] [--order P]
 (--device cpu rehearses the script at a small --n without a GPU.)
 """
 
@@ -97,24 +111,66 @@ def _cprofile_top(fn, n=12):
     return out, s.getvalue()
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=16)
-    ap.add_argument("--order", type=int, default=3)
-    ap.add_argument("--device", default="cuda:0")
-    args = ap.parse_args(argv)
-    dev = torch.device(args.device)
-    cuda = dev.type == "cuda"
-    if cuda and not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
+def _patched_run(patches, sync, fn):
+    """Run fn with ComponentTimer wrappers around the (object, attribute,
+    label) patches; returns (fn's result, wall seconds, timer)."""
+    ct = ComponentTimer(sync)
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, label in patches:
+        setattr(obj, name, ct.wrap(label, getattr(obj, name)))
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, name, f in saved:
+            setattr(obj, name, f)
+    return out, wall, ct
 
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
 
-    from palace_tpu.config import IoData, ValueType
+def _component_lines(ct, wall):
+    out = []
+    for label, t in sorted(ct.excl.items(), key=lambda kv: -kv[1]):
+        out.append(f"  {label:45s} {t:9.3f} s  {100 * t / wall:5.1f}%  "
+                   f"{ct.calls[label]} calls")
+    rest = wall - sum(ct.excl.values())
+    out.append(f"  {'unwrapped (host orchestration)':45s} {rest:9.3f} s  "
+               f"{100 * rest / wall:5.1f}%")
+    return out
+
+
+def _profiled(fn, cuda, sync, work, launches, lines, label):
+    """One call of fn under torch.profiler: device busy share and top
+    device activities (CPU-only: the profiler's CPU table)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n0 = launches()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        pwall = time.perf_counter() - t0
+    if cuda:
+        busy, kernels = _device_busy(prof, work)
+        lines.append(f"{label} (torch.profiler): wall {pwall:.3f} s, device "
+                     f"busy {busy:.3f} s ({100 * busy / pwall:.1f}%, idle "
+                     f"{100 * (1 - busy / pwall):.1f}%), structured kernel "
+                     f"launches {launches() - n0}")
+        lines.append("top device activities (s, count):")
+        for name, (t, c) in kernels[:15]:
+            lines.append(f"  {t:9.4f} {c:7d}  {name[:100]}")
+    else:
+        lines.append(f"{label} (torch.profiler, CPU only): wall {pwall:.3f} s")
+        lines.append(prof.key_averages().table(
+            sort_by="self_cpu_time_total", row_limit=18,
+            max_name_column_width=60))
+
+
+def _profile_driven(args, dev, cuda, sync, lines, work):
     from palace_torch.cases import write_slice_case
+    from palace_torch.config import IoData, ValueType
     from palace_torch.drivers import driven
     from palace_torch.drivers.common import prepare_mesh
     from palace_torch.fem import estimators
@@ -122,12 +178,7 @@ def main(argv=None) -> int:
     from palace_torch.models.spaceoperator import SpaceOperator
     from palace_torch.ops import structured, structured_kernel
 
-    card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True,
-                           text=True).stdout.strip() if cuda else "cpu")
-    lines = [f"card: {card}; torch {torch.__version__}",
-             f"case: slice n={args.n} order={args.order}"]
-    work = tempfile.mkdtemp()
+    lines.append(f"case: slice n={args.n} order={args.order}")
     iodata = IoData(write_slice_case(work, args.n, args.order,
                                      device="GPU" if cuda else "CPU",
                                      verbose=0))
@@ -156,14 +207,14 @@ def main(argv=None) -> int:
     sync()
     t0 = time.perf_counter()
     X, info = solver.solve(rhs)
+    sync()
     wall = time.perf_counter() - t0
     lines.append(f"solve (plain): {wall:.3f} s, iterations "
                  f"{info['iterations'].tolist()}, max relres "
                  f"{info['relres'].max():.3e}")
 
     # Component timers (module-level functions and methods patched in place).
-    ct = ComponentTimer(sync)
-    patches = [
+    _, timed, ct = _patched_run([
         (device_ksp, "_ell_apply", "ELL SpMV (G, Gt, P, Pt, aux terms)"),
         (device_ksp, "_hessenberg_lstsq", "host lstsq"),
         (device_ksp.BlockedDeviceSolver, "_coarse_solve",
@@ -174,47 +225,13 @@ def main(argv=None) -> int:
         (device_ksp.BlockedDeviceSolver, "_vcycle", "V-cycle other"),
         (device_ksp.BlockedDeviceSolver, "_solve_block",
          "FGMRES other (MGS, updates)"),
-    ]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-    for obj, name, label in patches:
-        setattr(obj, name, ct.wrap(label, getattr(obj, name)))
-    try:
-        t0 = time.perf_counter()
-        solver.solve(rhs)
-        timed = time.perf_counter() - t0
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
+    ], sync, lambda: solver.solve(rhs))
     lines.append(f"solve (component timers, synchronizing): {timed:.3f} s")
-    for label, t in sorted(ct.excl.items(), key=lambda kv: -kv[1]):
-        lines.append(f"  {label:45s} {t:9.3f} s  {100 * t / timed:5.1f}%  "
-                     f"{ct.calls[label]} calls")
+    lines += _component_lines(ct, timed)
 
-    # torch.profiler: device busy share and top kernels.
-    from torch.profiler import ProfilerActivity, profile
-
-    launches0 = structured_kernel.structured_apply_flat.launches
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        solver.solve(rhs)
-        sync()
-        pwall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    if cuda:
-        busy, kernels = _device_busy(prof, work)
-        lines.append(f"solve (torch.profiler): wall {pwall:.3f} s, device "
-                     f"busy {busy:.3f} s ({100 * busy / pwall:.1f}%, idle "
-                     f"{100 * (1 - busy / pwall):.1f}%), structured kernel "
-                     "launches "
-                     f"{structured_kernel.structured_apply_flat.launches - launches0}")
-        lines.append("top device activities (s, count):")
-        for name, (t, c) in kernels[:15]:
-            lines.append(f"  {t:9.4f} {c:7d}  {name[:100]}")
-    else:
-        lines.append(f"solve (torch.profiler, CPU only): wall {pwall:.3f} s")
-        lines.append(ka.table(sort_by="self_cpu_time_total", row_limit=18,
-                              max_name_column_width=60))
+    _profiled(lambda: solver.solve(rhs), cuda, sync, work,
+              lambda: structured_kernel.structured_apply_flat.launches,
+              lines, "solve")
 
     # Postprocessing under cProfile.
     def post():
@@ -233,9 +250,152 @@ def main(argv=None) -> int:
                  f"{time.perf_counter() - t0:.2f} s")
     lines.append(prof)
 
+
+def _profile_eigen(args, dev, cuda, sync, lines, work):
+    from palace_torch.cases import write_eigen_case
+    from palace_torch.config import IoData, ValueType
+    from palace_torch.drivers import eigenmode
+    from palace_torch.drivers.common import prepare_mesh
+    from palace_torch.fem import estimators
+    from palace_torch.linalg import device_eig, device_ksp
+    from palace_torch.models.spaceoperator import SpaceOperator
+    from palace_torch.ops import structured, structured_kernel
+
+    lines.append(f"case: eigen n={args.n} order={args.order}")
+    iodata = IoData(write_eigen_case(work, args.n, args.order,
+                                     device="GPU" if cuda else "CPU",
+                                     verbose=0))
+    t0 = time.perf_counter()
+    sop = SpaceOperator(iodata, prepare_mesh(iodata), device=dev)
+    n = sop.space.num_dofs
+    lines.append(f"operator construction {time.perf_counter() - t0:.2f} s, "
+                 f"{n} dofs")
+    # The arguments the eigenmode driver's first attempt passes.
+    cfg = iodata.solver.eigenmode
+    omega_t = 2 * math.pi * iodata.units.nondimensionalize(
+        ValueType.FREQUENCY, cfg.target)
+    sigma, nev = omega_t ** 2, 2 * max(cfg.n, 1) + 8
+    F = min(n, max(nev // 2 + 4, 6))
+    pec = list(iodata.boundaries.pec)
+    K_t = sop._combine(sop.K_dom, sop.K_bdr)
+    M_t = sop._combine(sop.M_re, sop.M_bdr)
+
+    t0 = time.perf_counter()
+    (solver, _, _), prof = _cprofile_top(lambda: device_eig.eig_setup(
+        sop.space, pec, K_t, M_t, sop.ess_mask, sigma, F, tol=cfg.tol,
+        device=dev))
+    lines.append(f"solver + projector setup (under cProfile) "
+                 f"{time.perf_counter() - t0:.2f} s")
+    lines.append(prof)
+
+    # One inner block solve at the shift (the Lanczos step's unit of work).
+    rng = np.random.default_rng(5)
+    B = rng.standard_normal((n, min(F, 8))) + 0.0j
+    B[sop.ess_mask] = 0.0
+    zeros = np.zeros(B.shape[1], int)
+    sync()
+    t0 = time.perf_counter()
+    _, info = solver.solve(B, omega_idx=zeros)
+    sync()
+    lines.append(f"inner block solve (plain, {B.shape[1]} columns): "
+                 f"{time.perf_counter() - t0:.3f} s, iterations "
+                 f"{info['iterations'].tolist()}, max relres "
+                 f"{info['relres'].max():.3e}")
+
+    # The whole eigensolve with synchronizing component timers.
+    res, timed, ct = _patched_run([
+        (device_eig, "eig_setup", "solver + projector setup (host)"),
+        (device_eig.DivFreeProjector, "__call__",
+         "div-free projection (host splu)"),
+        (device_eig, "_m_orthonormalize", "M-orthonormalization (host)"),
+        (device_ksp.BlockedDeviceSolver, "apply_fine",
+         "fine K/M applies (+ host copies)"),
+        (device_ksp.BlockedDeviceSolver, "solve",
+         "inner solve (host layout + copies)"),
+        (device_ksp, "_ell_apply", "ELL SpMV (G, Gt, P, Pt, aux terms)"),
+        (device_ksp, "_hessenberg_lstsq", "host lstsq"),
+        (device_ksp.BlockedDeviceSolver, "_coarse_solve",
+         "coarse solve (host splu + copies)"),
+        (structured.StructuredTermApply, "__call__",
+         "structured fine apply (layout + combine)"),
+        (structured, "structured_apply_flat_v2", "structured kernel v2"),
+        (device_ksp.BlockedDeviceSolver, "_vcycle", "V-cycle other"),
+        (device_ksp.BlockedDeviceSolver, "_solve_block",
+         "FGMRES other (MGS, updates)"),
+    ], sync, lambda: device_eig.device_shift_invert_eigs(
+        sop.space, pec, K_t, M_t, sop.ess_mask, sigma, nev, tol=cfg.tol,
+        nconv=min(nev, cfg.n + 4), device=dev))
+    info = device_eig.device_shift_invert_eigs.last_info
+    lines.append(f"eigensolve (component timers, synchronizing): "
+                 f"{timed:.3f} s, {info['restarts']} restarts, "
+                 f"{info['ksp_iterations']} FGMRES iterations, fine level "
+                 f"{info['fine_level']}")
+    lines += _component_lines(ct, timed)
+
+    _profiled(lambda: solver.solve(B, omega_idx=zeros), cuda, sync, work,
+              lambda: structured_kernel.structured_apply_flat_v2.launches,
+              lines, "inner block solve")
+
+    # The modes' postprocessing (as the driver: the n lowest physical
+    # modes, unit M-norm, energies and indicators) under cProfile.
+    omega = np.sqrt(res.eigenvalues.astype(complex))
+    keep = np.where(np.real(omega) > max(1e-8, 1e-3 * omega_t))[0]
+    keep = keep[np.argsort(np.real(omega[keep]))][:cfg.n]
+    M = sop.mass_csr()
+
+    def post():
+        for i in keep:
+            x = res.eigenvectors[:, i]
+            x = x / math.sqrt(abs(np.real(np.conj(x) @ (M @ x))))
+            e2 = estimators.curl_flux_indicators(
+                sop.space, sop.materials, x, device=dev) / abs(omega[i]) ** 2
+            e2 = e2 + estimators.grad_flux_indicators(
+                sop.space, sop.materials, x, device=dev)
+            eigenmode._quad(sop.M_re, x)
+            eigenmode._quad(sop.K_dom, x)
+        return e2
+
+    t0 = time.perf_counter()
+    _, prof = _cprofile_top(post)
+    lines.append(f"postprocessing of {len(keep)} modes (under cProfile) "
+                 f"{time.perf_counter() - t0:.2f} s")
+    lines.append(prof)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--problem", choices=("driven", "eigen"),
+                    default="driven")
+    ap.add_argument("--n", type=int, default=None,
+                    help="cells per side (default 16 driven, 12 eigen)")
+    ap.add_argument("--order", type=int, default=3)
+    ap.add_argument("--device", default="cuda:0")
+    args = ap.parse_args(argv)
+    if args.n is None:
+        args.n = 16 if args.problem == "driven" else 12
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip() if cuda else "cpu")
+    lines = [f"card: {card}; torch {torch.__version__}"]
+    work = tempfile.mkdtemp()
+    (_profile_driven if args.problem == "driven" else _profile_eigen)(
+        args, dev, cuda, sync, lines, work)
+
     report = "\n".join(lines)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_slice.txt"), "w") as f:
+    name = "profile_slice.txt" if args.problem == "driven" \
+        else "profile_eigen.txt"
+    with open(os.path.join("chiprun_out", name), "w") as f:
         f.write(report + "\n")
     print(report)
     return 0

@@ -10,9 +10,10 @@ import sys
 import pytest
 import torch
 
-from palace_tpu.config import IoData
+import palace_torch
 from palace_torch.__main__ import main as cli_main
-from palace_torch.cases import write_slice_case
+from palace_torch.cases import write_eigen_case, write_slice_case
+from palace_torch.config import IoData
 from palace_torch.device import resolve_device
 from palace_torch.drivers import driven
 
@@ -21,7 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def test_cli_dry_run(tmp_path, capsys):
-    cfg = write_slice_case(str(tmp_path), 2, 1)
+    cfg = write_slice_case(str(tmp_path), 2, 1, device="CPU")
     assert cli_main(["--dry-run", cfg]) == 0
     out = json.loads(capsys.readouterr().out)
     assert out["problem"]["type"] == "Driven"
@@ -40,8 +41,26 @@ def test_resolve_device():
             resolve_device("GPU")
 
 
+@pytest.mark.parametrize("writer", [write_slice_case, write_eigen_case],
+                         ids=["driven", "eigen"])
+def test_entry_points_default_to_the_gpu(tmp_path, writer):
+    """The case writers and the port's schema pick the GPU unless asked for
+    the CPU; without CUDA a run then refuses to start."""
+    path = writer(str(tmp_path), 2, 1, verbose=0)
+    with open(path) as f:
+        cfg = json.load(f)
+    assert cfg["Solver"]["Device"] == "GPU"
+    del cfg["Solver"]["Device"]
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    assert IoData(path).solver.device == "GPU"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            palace_torch.run(path)
+
+
 def test_solver_routing(tmp_path):
-    iodata = IoData(write_slice_case(str(tmp_path), 2, 1))
+    iodata = IoData(write_slice_case(str(tmp_path), 2, 1, device="CPU"))
     assert driven.use_device_ksp(iodata, 100)  # explicit GMG
     iodata.solver.linear.type = "SuperLU"
     assert not driven.use_device_ksp(iodata, 10 ** 7)
@@ -55,7 +74,8 @@ def test_solver_routing(tmp_path):
     ("adaptive", "adaptive PROM"),
 ])
 def test_unported_features_name_roadmap_item(tmp_path, feature, item):
-    iodata = IoData(write_slice_case(str(tmp_path), 2, 1, verbose=0))
+    iodata = IoData(write_slice_case(str(tmp_path), 2, 1, device="CPU",
+                                     verbose=0))
     if feature == "amr":
         iodata.model.refinement.max_it = 1
     else:
@@ -65,12 +85,12 @@ def test_unported_features_name_roadmap_item(tmp_path, feature, item):
 
 
 @pytest.mark.parametrize("ptype,item", [
-    ("EIGENMODE", "eigenmode"),
+    ("ELECTROSTATIC", "electrostatic/magnetostatic/AMR"),
     ("MAGNETOSTATIC", "electrostatic/magnetostatic/AMR"),
     ("TRANSIENT", "transient/boundary-mode"),
 ])
 def test_unported_drivers_name_roadmap_item(ptype, item):
-    from palace_tpu.config import ProblemType
+    from palace_torch.config import ProblemType
     from palace_torch.drivers import get_driver
 
     with pytest.raises(NotImplementedError, match=item):

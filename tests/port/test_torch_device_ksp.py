@@ -1,6 +1,7 @@
 """Blocked FGMRES + p-MG: palace_torch's BlockedDeviceSolver (CPU) against
 palace_tpu's BlockedDeviceSolver and sparse-direct sweep, on operators
-carried over bit-identically through palace_torch.interop.  Tolerance 1e-8
+carried over bit-identically through palace_torch.interop and the port's own
+mesh and Nedelec space (same dof numbering).  Tolerance 1e-8
 relative per column (the solvers stop at Tol 1e-10; both take the same
 iteration counts)."""
 
@@ -20,7 +21,11 @@ from palace_tpu.mesh import gmsh_write
 from palace_tpu.mesh.generate import box_tet
 from palace_tpu.models.spaceoperator import SpaceOperator
 from palace_torch.cases import write_slice_case
+from palace_torch.config import IoData as TorchIoData
+from palace_torch.drivers.common import prepare_mesh as torch_prepare_mesh
+from palace_torch.mesh.mesh import canonicalize_simplices
 from palace_torch.interop import terms_from_numpy
+from palace_torch.fem.nd import NDSpace as TorchNDSpace
 from palace_torch.linalg.device_ksp import BlockedDeviceSolver
 
 ETA0 = 376.730313412
@@ -73,14 +78,20 @@ def _col_rel(a, b):
 
 @pytest.mark.parametrize("case", ["structured", "element"])
 def test_blocked_solver_matches_jax(tmp_path, case):
-    path = (write_slice_case(str(tmp_path), 4, 2, tol=1e-10, verbose=0)
+    path = (write_slice_case(str(tmp_path), 4, 2, tol=1e-10, verbose=0,
+                             device="CPU")
             if case == "structured" else _tem_case(tmp_path))
     iodata, sop, omegas, ex, rhs = _setup(path)
     pec = iodata.boundaries.pec
     terms = sop.driven_terms(omegas)
     jsolver = JaxBlockedDeviceSolver(sop.space, pec, terms, omegas,
                                      sop.ess_mask, **KW)
-    tsolver = BlockedDeviceSolver(sop.space, pec, terms_from_numpy(terms),
+    t_iodata = TorchIoData(path)
+    t_mesh = torch_prepare_mesh(t_iodata)
+    canonicalize_simplices(t_mesh)
+    tspace = TorchNDSpace(t_mesh, t_iodata.solver.order)
+    assert tspace.num_dofs == sop.space.num_dofs
+    tsolver = BlockedDeviceSolver(tspace, pec, terms_from_numpy(terms),
                                   omegas, sop.ess_mask, **KW)
     assert (tsolver.structured is not None) == (case == "structured")
     assert (jsolver._fine_perm is not None) == (case == "structured")

@@ -1,7 +1,8 @@
-"""The hand-written structured-apply kernel against its plain PyTorch
-version on the card (float64 tolerance 1e-12, float32 1e-5, relative to
-max |y|).  These tests need a CUDA device and skip without one; the file
-imports no jax, so on a machine without JAX run it as
+"""The hand-written structured-apply kernels (natural channel order and
+carry-class order) against their plain PyTorch versions on the card (float64
+tolerance 1e-12, float32 1e-5, relative to max |y|).  These tests need a
+CUDA device and skip without one; the file imports no jax, so on a machine
+without JAX run it as
     python -m pytest tests/port/test_torch_kernel_cuda.py -q --noconftest
 """
 
@@ -55,3 +56,36 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError):  # no kernel for complex data
         sk.structured_apply_flat(Af.to(torch.complex128),
                                  u.to(torch.complex128), p=p, shape=shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,shape", [(1, (3, 2, 4)), (2, (3, 2, 4)),
+                                     (3, (3, 2, 4)), (2, (5, 7, 3)),
+                                     (3, (12, 12, 12))])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_class_kernel_matches_plain_on_card(cuda_device, p, shape, dtype,
+                                            tol):
+    Af, u = _inputs(p, shape, dtype, cuda_device)
+    Af_perm, _ = sk.v2_tables(StructuredNDOperator.build_uniform(
+        p, shape, 0.25, mass=0.5))
+    Af_perm = torch.as_tensor(Af_perm, dtype=dtype, device=cuda_device)
+    before = sk.structured_apply_flat_v2.launches
+    y = sk.structured_apply_flat_v2(Af_perm, u, p=p, shape=shape)
+    torch.cuda.synchronize()
+    assert sk.structured_apply_flat_v2.launches == before + 1
+    y_ref = sk.structured_apply_flat_v2_ref(Af_perm, u, p=p, shape=shape)
+    assert float((y - y_ref).abs().max()) <= tol * float(y_ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_class_lattice_apply_matches_natural_on_card(cuda_device):
+    """Both kernels compute the same operator: the carry-class lattice apply
+    equals the natural-order one after the channel permutation."""
+    p, shape = 3, (5, 4, 6)
+    sop = StructuredNDOperator.build_uniform(p, shape, 0.25, mass=0.5)
+    lat = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (4,) + sop.lat_gdof.shape), device=cuda_device)
+    y1 = sk.structured_apply_lattice(sop, lat)
+    y2 = sk.structured_apply_lattice_v2(sop, lat)
+    assert float((y1 - y2).abs().max()) <= 1e-12 * float(y1.abs().max())

@@ -11,12 +11,12 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from palace_tpu.fem.nd import NDSpace
 from palace_tpu.linalg import device_ksp as jksp
-from palace_tpu.mesh.generate import box_hex, box_tet
-from palace_tpu.mesh.mesh import canonicalize_simplices
+from palace_torch.fem.nd import NDSpace
 from palace_torch.fem.nd_operators import nd_operator
 from palace_torch.linalg import device_ksp as tksp
+from palace_torch.mesh.generate import box_hex, box_tet
+from palace_torch.mesh.mesh import canonicalize_simplices
 from palace_torch.ops.partial import signed_tables
 
 MESHES = [("tet", 3), ("hex", 2)]
@@ -33,7 +33,8 @@ def _cplx(rng, *shape):
 
 
 def _terms(kind, p):
-    """(K, M, M_im)-like terms with their palace_tpu and port classes."""
+    """(K, M, M_im)-like terms with their palace_tpu and port classes, on
+    tables the port assembles on its own space."""
     mesh = box_tet(2, 2, 2) if kind == "tet" else box_hex(2, 2, 2)
     canonicalize_simplices(mesh)
     space = NDSpace(mesh, p)

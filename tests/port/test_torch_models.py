@@ -33,13 +33,20 @@ from palace_tpu.mesh import gmsh_write
 from palace_tpu.mesh.generate import box_tet
 from palace_tpu.mesh.mesh import canonicalize_simplices
 from palace_tpu.models.spaceoperator import SpaceOperator as JaxSpaceOperator
+from palace_torch.config import IoData as TorchIoData
+from palace_torch.drivers.common import prepare_mesh as torch_prepare_mesh
 from palace_torch.drivers.common import write_error_indicators
 from palace_torch.drivers.driven import driven_samples_ghz
 from palace_torch.fem import nd_boundary as tbdr
 from palace_torch.fem import operators as tops
+from palace_torch.fem.evaluation import boundary_trace as t_boundary_trace
+from palace_torch.fem.nd import NDSpace as TorchNDSpace
 from palace_torch.fem.nd_operators import nd_operator
+from palace_torch.fem.reference import Geom as TorchGeom
 from palace_torch.linalg.iterative import cg
 from palace_torch.linalg.smoothers import jacobi
+from palace_torch.mesh.generate import box_tet as t_box_tet
+from palace_torch.mesh.mesh import canonicalize_simplices as t_canonicalize
 from palace_torch.models.spaceoperator import SpaceOperator
 
 TABLES = ("domain-E.csv", "error-indicators.csv", "port-I.csv", "port-S.csv",
@@ -100,8 +107,8 @@ def _operators(tmp_path_factory, order):
     """(port SpaceOperator, palace_tpu SpaceOperator) of the rich case."""
     if order not in _OPS:
         path = _rich_case(str(tmp_path_factory.mktemp(f"rich{order}")), order)
-        io_t, io_j = IoData(path), IoData(path)
-        _OPS[order] = (SpaceOperator(io_t, prepare_mesh(io_t)),
+        io_t, io_j = TorchIoData(path), IoData(path)
+        _OPS[order] = (SpaceOperator(io_t, torch_prepare_mesh(io_t)),
                        JaxSpaceOperator(io_j, prepare_mesh(io_j)))
     return _OPS[order]
 
@@ -139,12 +146,16 @@ def test_space_operator_matches_jax(tmp_path_factory, order, what):
 
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_boundary_forms_match_jax(order):
-    """Trace basis, facet mass matrices and facet right-hand sides."""
-    mesh = box_tet(2, 2, 2)
-    canonicalize_simplices(mesh)
-    space = NDSpace(mesh, order)
-    tr = boundary_trace(mesh, [1, 3], 2 * order)
-    tb, tb_j = tbdr.nd_trace_basis(space, tr), jbdr.nd_trace_basis(space, tr)
+    """Trace basis, facet mass matrices and facet right-hand sides (each
+    package on its own mesh, space and trace)."""
+    mesh, mesh_j = t_box_tet(2, 2, 2), box_tet(2, 2, 2)
+    t_canonicalize(mesh)
+    canonicalize_simplices(mesh_j)
+    space, space_j = TorchNDSpace(mesh, order), NDSpace(mesh_j, order)
+    tr = t_boundary_trace(mesh, [1, 3], 2 * order)
+    tb = tbdr.nd_trace_basis(space, tr)
+    tb_j = jbdr.nd_trace_basis(space_j,
+                               boundary_trace(mesh_j, [1, 3], 2 * order))
     assert np.array_equal(tb.dofs, tb_j.dofs)
     assert _rel(tb.V, tb_j.V) < 1e-14 and _rel(tb.Vt, tb_j.Vt) < 1e-14
     rng = np.random.default_rng(order)
@@ -168,7 +179,7 @@ def test_default_qorder_matches_jax(jac, geom):
             c.set(jac, 1 if jac else 0)
         for p in (1, 2, 3):
             for g in (1, 2, 3):
-                assert tops.default_qorder(p, g, geom) == \
+                assert tops.default_qorder(p, g, TorchGeom[geom.name]) == \
                     jops.default_qorder(p, g, geom)
     finally:
         for c, j, e in saved:
@@ -190,8 +201,7 @@ def test_driven_samples_match_jax(tmp_path, driven):
     cfg["Solver"]["Driven"] = driven
     with open(path, "w") as f:
         json.dump(cfg, f)
-    iodata = IoData(path)
-    assert driven_samples_ghz(iodata) == jax_samples(iodata)
+    assert driven_samples_ghz(TorchIoData(path)) == jax_samples(IoData(path))
 
 
 @pytest.mark.parametrize("with_energies", [False, True])
@@ -209,9 +219,9 @@ def test_error_indicator_table_matches_jax(tmp_path, with_energies):
 
 
 def test_jacobi_cg_solves_mass_system():
-    mesh = box_tet(2, 2, 2)
-    canonicalize_simplices(mesh)
-    space = NDSpace(mesh, 2)
+    mesh = t_box_tet(2, 2, 2)
+    t_canonicalize(mesh)
+    space = TorchNDSpace(mesh, 2)
     M = nd_operator(space, mass_coef={1: np.eye(3)})
     b = np.random.default_rng(0).standard_normal(space.num_dofs)
     res = cg(M, torch.as_tensor(b), M=jacobi(M.diagonal()), tol=1e-10)

@@ -1,34 +1,101 @@
-"""No-jax guard: in a fresh interpreter whose import system refuses jax,
-every palace_torch module imports and the 4^3 slice case runs on the CPU
-(catches lazy imports of jax-backed palace_tpu modules)."""
+"""The port imports nothing of JAX and nothing of the JAX package.
 
+- Statically: an AST scan of every palace_torch source, chip_smoke.py and
+  scripts/profile_torch_slice.py finds no import of jax, jaxlib or
+  palace_tpu, function-level imports and string imports (`__import__`,
+  `importlib.import_module`) included.
+- At run time: in a fresh interpreter whose import system refuses those
+  packages, every palace_torch module imports, the 3^3 driven slice case and
+  the box-tet eigenmode case (host branch) run on the CPU, and neither
+  package is in sys.modules at the end.  The eigenmode device branch runs
+  under the same guard in test_torch_eigen.py."""
+
+import ast
 import os
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+REFUSED = ("jax", "jaxlib", "palace_tpu")
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, json, os, pkgutil, sys
 
-class RefuseJax:
+REFUSED = ("jax", "jaxlib", "palace_tpu")
+
+class Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax import refused: " + name)
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("import refused: " + name)
         return None
 
-sys.meta_path.insert(0, RefuseJax())
+sys.meta_path.insert(0, Refuse())
 import palace_torch
 for m in pkgutil.walk_packages(palace_torch.__path__, "palace_torch."):
     importlib.import_module(m.name)
 from palace_torch.cases import write_slice_case
-res = palace_torch.run(write_slice_case(sys.argv[1], 4, 2, tol=1e-10,
+from palace_torch.mesh import gmsh_write
+from palace_torch.mesh.generate import box_tet
+
+res = palace_torch.run(write_slice_case(os.path.join(sys.argv[1], "driven"),
+                                        3, 2, tol=1e-10, device="CPU",
                                         verbose=0))
-assert res["num_dofs"] == 1944
-assert not any(k.split(".")[0] in ("jax", "jaxlib") for k in sys.modules)
+assert res["num_dofs"] == 882
+eig = os.path.join(sys.argv[1], "eigen")
+os.makedirs(eig)
+gmsh_write.write(box_tet(3, 3, 3), os.path.join(eig, "box.msh"))
+with open(os.path.join(eig, "case.json"), "w") as f:
+    json.dump({
+        "Problem": {"Type": "Eigenmode", "Verbose": 0, "Output": "postpro"},
+        "Model": {"Mesh": "box.msh", "L0": 1.0e-2},
+        "Domains": {"Materials": [{"Attributes": [1], "Permittivity": 1.0}]},
+        "Boundaries": {"PEC": {"Attributes": [1, 2, 3, 4, 5, 6]}},
+        "Solver": {"Order": 2, "Device": "CPU",
+                   "Eigenmode": {"N": 3, "Target": 15.0, "Tol": 1e-9},
+                   "Linear": {"Tol": 1e-9}}}, f)
+res = palace_torch.run(os.path.join(eig, "case.json"))
+assert len(res["frequencies_ghz"]) == 3
+assert not any(k.split(".")[0] in REFUSED for k in sys.modules)
 print("NOJAX-OK")
 """
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "scripts", "profile_torch_slice.py")]
+    for d, _, files in os.walk(os.path.join(REPO, "palace_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_modules(path):
+    """(module name, line) of every import in the file, at any depth."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module, node.lineno
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and ((isinstance(node.func, ast.Name)
+                    and node.func.id == "__import__")
+                   or (isinstance(node.func, ast.Attribute)
+                       and node.func.attr == "import_module"))):
+            yield node.args[0].value, node.lineno
+
+
+def test_port_sources_import_no_jax_package():
+    found = [f"{os.path.relpath(path, REPO)}:{line} imports {mod}"
+             for path in _sources()
+             for mod, line in _imported_modules(path)
+             if mod.split(".")[0] in REFUSED]
+    assert len(_sources()) > 60
+    assert not found, "\n".join(found)
 
 
 def test_port_runs_without_jax(tmp_path):

@@ -16,7 +16,11 @@ from palace_tpu.mesh.generate import box_hex, box_tet
 from palace_tpu.mesh.mesh import canonicalize_simplices
 from palace_tpu.ops.partial import Scatter as JaxScatter
 from palace_tpu.ops.partial import detect_dof_group as jax_detect_dof_group
+from palace_torch.fem.h1 import H1Space as TorchH1Space
+from palace_torch.fem.nd import NDSpace as TorchNDSpace
 from palace_torch.fem.nd_operators import nd_h1_gradient, nd_operator
+from palace_torch.mesh import generate as tgen
+from palace_torch.mesh.mesh import canonicalize_simplices as t_canonicalize
 from palace_torch.ops.partial import (
     BucketTables, PAOperator, Scatter, detect_dof_group)
 
@@ -28,6 +32,13 @@ def _space(kind, p):
     mesh = box_tet(3, 3, 3) if kind == "tet" else box_hex(2, 2, 2)
     canonicalize_simplices(mesh)
     return NDSpace(mesh, p)
+
+
+def _torch_space(kind, p):
+    """The same space built from the port's own copies."""
+    mesh = tgen.box_tet(3, 3, 3) if kind == "tet" else tgen.box_hex(2, 2, 2)
+    t_canonicalize(mesh)
+    return TorchNDSpace(mesh, p)
 
 
 def _coefs():
@@ -64,16 +75,16 @@ def test_pa_operator_matches_jax(kind, p):
 
 @pytest.mark.parametrize("kind,p", CASES)
 def test_nd_operator_element_matrices_match_jax(kind, p):
-    space = _space(kind, p)
+    space, tspace = _space(kind, p), _torch_space(kind, p)
     jop = jax_nd_operator(space, dtype=jnp.float64, **_coefs())
-    top = nd_operator(space, **_coefs())
+    top = nd_operator(tspace, **_coefs())
     for bt, bj in zip(top.buckets, jop.buckets):
         assert _rel(bt.A, bj.A) < TOL
         assert np.array_equal(bt.gidx, bj.gidx)
         if bj.signs is not None:
             assert np.array_equal(bt.signs, np.asarray(bj.signs))
-    h1 = H1Space(space.mesh, p)
-    G_t, G_j = nd_h1_gradient(space, h1), jax_gradient(space, h1)
+    G_t = nd_h1_gradient(tspace, TorchH1Space(tspace.mesh, p))
+    G_j = jax_gradient(space, H1Space(space.mesh, p))
     assert abs(G_t - G_j).max() < TOL
 
 

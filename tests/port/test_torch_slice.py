@@ -34,9 +34,9 @@ def _col_rel(a, b):
 
 def test_slice_matches_jax_package(tmp_path):
     t_cfg = write_slice_case(str(tmp_path / "torch"), 4, 2, tol=1e-10,
-                             verbose=0)
+                             verbose=0, device="CPU")
     j_cfg = write_slice_case(str(tmp_path / "jax"), 4, 2, tol=1e-10,
-                             verbose=0)
+                             verbose=0, device="CPU")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO

@@ -23,8 +23,10 @@ from palace_tpu.ops.structured import StructuredNDOperator as JaxSOp
 from palace_tpu.ops.structured import StructuredTermApply as JaxTermApply
 from palace_tpu.ops.structured import hex_local_map as jax_hex_local_map
 from palace_tpu.ops.structured import pec_ess_lat as jax_pec_ess_lat
+from palace_torch.fem.nd import NDSpace as TorchNDSpace
 from palace_torch.fem.nd_operators import nd_operator
 from palace_torch.interop import structured_from_numpy, terms_from_numpy
+from palace_torch.mesh.generate import box_hex as t_box_hex
 from palace_torch.ops import structured_kernel as sk
 from palace_torch.ops.partial import signed_tables
 from palace_torch.ops.structured import (
@@ -38,6 +40,18 @@ LAYOUTS = [(p, shape) for p in (1, 2, 3)
 def _rel(a, b):
     return float(np.abs(np.asarray(a) - np.asarray(b)).max()
                  / np.abs(np.asarray(b)).max())
+
+
+def _spaces(p):
+    """The 3 x 2 x 4 PEC box hex space and its essential mask, built by
+    palace_tpu and by the port's own copies (same dof numbering)."""
+    out = []
+    for box, space_cls in ((box_hex, NDSpace), (t_box_hex, TorchNDSpace)):
+        space = space_cls(box(3, 2, 4, lx=0.75, ly=0.5, lz=1.0), p)
+        ess = np.zeros(space.num_dofs, bool)
+        ess[space.boundary_dofs([1, 2, 3, 4, 5, 6])] = True
+        out += [space, ess]
+    return out
 
 
 def _lattice(sop, dtype, seed=0):
@@ -55,6 +69,26 @@ def test_plain_apply_matches_jax_float64(p):
     y_conv_t = tsop.conv_apply(torch.as_tensor(lat)).numpy()
     assert _rel(y_flat, y_conv) < 1e-12
     assert _rel(y_conv_t, y_conv) < 1e-12
+
+
+@pytest.mark.parametrize("p,shape", LAYOUTS)
+def test_plain_apply_equals_per_dof_slices(p, shape):
+    """The plain version's one gather and one scatter-add against the TPU
+    kernel body's per-local-dof slice copies, bit for bit (same products,
+    same summation order)."""
+    chan, offs, mask, _, Lp, Lu, _ = sk._flat_tables(p, shape)
+    rng = np.random.default_rng(p)
+    nd = len(chan)
+    Af = torch.as_tensor(rng.standard_normal((nd, nd)))
+    u = torch.as_tensor(rng.standard_normal((3, 3 * p ** 3, Lu)))
+    ul = torch.stack([u[:, chan[n], offs[n]:offs[n] + Lp]
+                      for n in range(nd)], dim=1)
+    vl = torch.matmul(Af, ul) * torch.as_tensor(mask)
+    y = torch.zeros_like(u)
+    for n in range(nd):
+        y[:, chan[n], offs[n]:offs[n] + Lp] += vl[:, n]
+    assert torch.equal(sk.structured_apply_flat_ref(Af, u, p=p, shape=shape),
+                       y)
 
 
 @pytest.mark.parametrize("p", [1, 2, 3])
@@ -85,14 +119,14 @@ def test_build_uniform_matches_jax(p):
 
 
 def test_build_from_mesh_matches_jax():
-    space = NDSpace(box_hex(3, 2, 4, lx=0.75, ly=0.5, lz=1.0), 2)
-    ess = np.zeros(space.num_dofs, bool)
-    ess[space.boundary_dofs([1, 2, 3, 4, 5, 6])] = True
+    space, ess, tspace, tess = _spaces(2)
+    assert np.array_equal(tess, ess)
     coefs = dict(curl_coef={1: np.eye(3)}, mass_coef={1: 2.0 * np.eye(3)})
     jsop = JaxSOp.build(space, jax_nd_operator(space, dtype=jnp.float64,
                                                **coefs), ess,
                         dtype=jnp.float64)
-    tsop = StructuredNDOperator.build(space, nd_operator(space, **coefs), ess)
+    tsop = StructuredNDOperator.build(tspace, nd_operator(tspace, **coefs),
+                                      tess)
     assert np.array_equal(tsop.lat_gdof, jsop.lat_gdof)
     assert np.array_equal(tsop.ess_lat, np.asarray(jsop.ess_lat))
     assert _rel(tsop.Af, np.asarray(jsop._Af)) < 1e-12
@@ -100,7 +134,7 @@ def test_build_from_mesh_matches_jax():
     rng = np.random.default_rng(3)
     u = np.where(ess, 0.0, rng.standard_normal(space.num_dofs))
     y = tsop.from_lattice(tsop(torch.as_tensor(tsop.to_lattice(u))).numpy())
-    A = nd_operator(space, **coefs).assemble_csr()
+    A = nd_operator(tspace, **coefs).assemble_csr()
     assert _rel(y[:, 0], np.where(ess, 0.0, A @ u)) < 1e-12
 
 
@@ -153,15 +187,13 @@ def test_flat_layout_matches_jax(p, shape):
 def test_term_apply_matches_jax(p):
     """The solver's fine-level term apply (complex block, lattice order)
     against palace_tpu's StructuredTermApply on the same term tables."""
-    space = NDSpace(box_hex(3, 2, 4, lx=0.75, ly=0.5, lz=1.0), p)
-    ess = np.zeros(space.num_dofs, bool)
-    ess[space.boundary_dofs([1, 2, 3, 4, 5, 6])] = True
-    K = nd_operator(space, curl_coef={1: np.eye(3)})
-    M = nd_operator(space, mass_coef={1: 2.0 * np.eye(3)})
+    space, ess, tspace, tess = _spaces(p)
+    K = nd_operator(tspace, curl_coef={1: np.eye(3)})
+    M = nd_operator(tspace, mass_coef={1: 2.0 * np.eye(3)})
     jterms = [JaxTerm("K", signed_tables(K.buckets), lambda w: 1.0 + 0.0j),
               JaxTerm("M", signed_tables(M.buckets), lambda w: -w * w)]
     japply = JaxTermApply.build(space, jterms, ess)
-    tapply = StructuredTermApply.build(space, terms_from_numpy(jterms), ess,
+    tapply = StructuredTermApply.build(tspace, terms_from_numpy(jterms), tess,
                                        torch.device("cpu"))
     assert np.array_equal(tapply.perm, japply.perm)
     rng = np.random.default_rng(p)
