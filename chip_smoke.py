@@ -7,14 +7,20 @@ Phases (each prints one line; any failure exits nonzero and prints no
 result line):
   1. card: CUDA must be available; prints nvidia-smi's name and power limit;
   2. build: compiles every hand-written kernel in palace_torch/csrc, one nvcc
-     process per source, all started together;
+     process per source, all started together; prints each kernel's
+     registers and spills (ptxas) and its count of float64 tensor-core
+     (DMMA) instructions (cuobjdump -sass), and fails if a float64 entry
+     point has none;
   3. kernels against plain: both structured-apply kernels (natural channel
      order, carry-class order) against their plain PyTorch versions on the
      card at small shapes and at the two main-path shapes (p = 3, 16^3 and
      12^3, B = 16), float64 and float32.  At those shapes: the CUDA-event
-     medians of both kernels, both plain versions and the stencil F.conv3d
-     that computes the same operator (library_ms), and the card's least
-     time for the work (bound_ms);
+     medians of both kernels (one call each, host work included), both
+     plain versions and the stencil F.conv3d that computes the same
+     operator (library_ms), the card's least time for the work (bound_ms),
+     each kernel's achieved TFLOP/s (useful operations over its median) and
+     share of the bound, and its device time alone (device_ms: 50 launches
+     queued behind a sleeping kernel);
   4. driven path: palace_torch.run on the driven slice case (16^3 hex box,
      Order 3, 345,744 dofs, 8 frequencies, GMG, Tol 1e-8) on the GPU; checks
      the structured fine level engaged, the first kernel launched (and the
@@ -39,14 +45,18 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
+#: p = 4 (39 n-tiles) runs the core's two-pass route; p <= 3 one pass.
 KERNEL_CASES = [(1, (3, 2, 4)), (2, (3, 2, 4)), (3, (3, 2, 4)),
-                (2, (24, 24, 24)), (3, (12, 12, 12)), (3, (16, 16, 16))]
+                (4, (3, 2, 4)), (4, (8, 8, 8)), (2, (24, 24, 24)),
+                (3, (12, 12, 12)), (3, (16, 16, 16))]
 BATCH = 16  # B = 2F, F = 8 columns
 #: The main-path shape of each kernel: the driven path runs the first
 #: kernel at 16^3, the eigenmode path the second at 12^3.  Both kernels are
@@ -88,6 +98,69 @@ def phase_card():
     return card
 
 
+def _ptxas_usage(log: str):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    `nvcc -Xptxas -v` log of one source."""
+    usage, name, spills = {}, None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            usage[name] = (int(m.group(1)),) + spills
+    return usage
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    cands = [found] if found else []
+    cands.append(os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "cuobjdump"))
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise SmokeFailure("cuobjdump not found")
+
+
+def _dmma_counts(library: str):
+    """{kernel: count of DMMA instructions} from cuobjdump -sass."""
+    out = subprocess.run([_cuobjdump(), "-sass", library],
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    counts, name = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bDMMA\b", ln):
+            counts[name] += 1
+    return counts
+
+
+def _dtype_of(kernel: str) -> str:
+    """"f64" / "f32", the stage count and "passes" (p >= 4) of a mangled
+    instance of the core's kernel template,
+    structured_apply_core<double|float, stages, passes>."""
+    m = re.search(r"structured_apply_coreI([df])Li(\d+)ELb([01])E", kernel)
+    if not m:
+        return kernel
+    return (f"{'f64' if m.group(1) == 'd' else 'f32'} x{m.group(2)}"
+            f"{' passes' if m.group(3) == '1' else ''}")
+
+
 def phase_build():
     from palace_torch.ops import structured_kernel as sk
 
@@ -97,10 +170,19 @@ def phase_build():
         sk._library(stem)
     dt = time.perf_counter() - t0
     for path, log in built:
-        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
-                if "registers" in ln]
+        usage = _ptxas_usage(log)
+        dmma = _dmma_counts(path)
+        f64 = [n for k, n in dmma.items() if _dtype_of(k).startswith("f64")]
+        check(f64 and min(f64) > 0,
+              f"{os.path.basename(path)}: a float64 kernel without DMMA "
+              f"instructions ({dmma})")
+        parts = []
+        for k in sorted(dmma, key=_dtype_of):
+            regs = (f"{usage[k][0]} registers, spills {usage[k][1]}/"
+                    f"{usage[k][2]} bytes" if k in usage else "cached")
+            parts.append(f"{_dtype_of(k)}: {regs}, {dmma[k]} DMMA")
         print(f"[2 build] {os.path.relpath(path)} ({dt:.2f} s for all); "
-              f"ptxas: {' / '.join(regs) if regs else 'cached'}", flush=True)
+              f"{'; '.join(parts)}", flush=True)
 
 
 def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -120,6 +202,31 @@ def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn, launches: int = 50) -> float:
+    """Device time per launch: `launches` calls queued behind a sleeping
+    kernel, so that the host's launch work overlaps the device's and the
+    events time the kernels alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    a.record()
+    for _ in range(launches):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / launches
+
+
+def _useful_ops(p: int, shape) -> float:
+    """2 nd^2 per real cell and batch column."""
+    nd = 3 * p * (p + 1) ** 2
+    return 2.0 * nd * nd * math.prod(shape) * BATCH
+
+
 def _bound(p: int, shape, dtype_name: str):
     """(bound_ms, bound_by): the card's least time for y = A u at this shape,
     the larger of the compulsory bytes (Af, mask and u read once, y written
@@ -131,8 +238,8 @@ def _bound(p: int, shape, dtype_name: str):
     nd, C = 3 * p * (p + 1) ** 2, 3 * p ** 3
     size = 8 if dtype_name == "float64" else 4
     nbytes = (2 * BATCH * C * Lu + nd * nd + Lp) * size
-    ops = 2.0 * nd * nd * math.prod(shape) * BATCH
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = _useful_ops(p, shape) / PEAK_FLOPS[dtype_name]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -169,6 +276,8 @@ def phase_kernels():
             name = str(dt).replace("torch.", "")
             u = torch.as_tensor(u64, dtype=dt, device=dev)
             line = f"[3 kernels] p={p} shape={shape} B={BATCH} {name}:"
+            if timed:
+                bound_ms, bound_by = _bound(p, shape, name)
             for kname, (fn, ref) in kernels.items():
                 A = sop.Af if kname == "structured_apply_flat" else Af_perm
                 A = torch.as_tensor(A, dtype=dt, device=dev).contiguous()
@@ -184,11 +293,25 @@ def phase_kernels():
                 if not timed:
                     continue
                 ms = _time_ms(lambda: fn(A, u, p=p, shape=shape))
+                dev_ms = _device_ms(lambda: fn(A, u, p=p, shape=shape))
                 plain_ms = _time_ms(lambda: ref(A, u, p=p, shape=shape))
-                line += f" median {ms:.4f} ms, plain {plain_ms:.4f} ms;"
-                if name == "float64" and shape == main_shape[kname]:
-                    records[kname] = {"max_abs_err": err, "ms": ms,
-                                      "plain_ms": plain_ms}
+                tflops = _useful_ops(p, shape) / (ms * 1e-3) / 1e12
+                share = bound_ms / ms
+                line += (f" median {ms:.4f} ms ({tflops:.2f} TFLOP/s, "
+                         f"{100 * share:.1f}% of bound), device "
+                         f"{dev_ms:.4f} ms ({100 * bound_ms / dev_ms:.1f}% "
+                         f"of bound), plain {plain_ms:.4f} ms;")
+                if name != "float64":
+                    continue
+                at = {"ms": ms, "tflops": tflops, "bound_share": share,
+                      "device_ms": dev_ms,
+                      "device_bound_share": bound_ms / dev_ms}
+                if shape == main_shape[kname]:
+                    records.setdefault(kname, {}).update(
+                        max_abs_err=err, plain_ms=plain_ms, **at)
+                else:
+                    records.setdefault(kname, {})["other_shape"] = dict(
+                        shape="x".join(map(str, shape)), **at)
             if timed:
                 # The library yardstick: the stencil convolution on the
                 # lattice layout of the same data (never called by the port).
@@ -202,7 +325,6 @@ def phase_kernels():
                     y_flat.abs().max()), f"conv3d disagrees: {conv_err:.3e}")
                 lib_ms = _time_ms(lambda: torch.nn.functional.conv3d(
                     lat, W, padding=1))
-                bound_ms, bound_by = _bound(p, shape, name)
                 line += (f" F.conv3d {lib_ms:.4f} ms; bound {bound_ms:.4f} "
                          f"ms ({bound_by})")
                 for kname, rec in records.items():

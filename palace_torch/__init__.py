@@ -7,7 +7,9 @@ solver, or host ARPACK -> eig, energy and error-indicator tables) on one
 NVIDIA GPU or on the CPU, with the same JSON configuration as palace_tpu.  On
 uniform PEC box hex meshes the fine-level operator runs through hand-written
 CUDA kernels (csrc/structured_apply.cu for the driven sweep,
-csrc/structured_apply_v2.cu for the eigensolver).  Imports torch, never jax,
+csrc/structured_apply_v2.cu for the eigensolver, both entry points of the
+float64 tensor-core core csrc/structured_apply_core.cuh).  Imports torch,
+never jax,
 and nothing of palace_tpu: the jax-free host modules it needs (config, mesh,
 finite-element spaces, materials, lumped ports, tables) are copies kept in
 this package.

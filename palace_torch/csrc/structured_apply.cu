@@ -1,5 +1,6 @@
-// Uniform box-hex Nedelec (ND) operator apply on the flattened padded
-// lattice, written by hand for Hopper (sm_90a).
+// Entry points of Pallas kernel #1's counterpart: the uniform box-hex
+// Nedelec (ND) operator apply on the flattened padded lattice, channels in
+// natural order, written by hand for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel palace_tpu/ops/pallas_structured.py:241
 // structured_apply_flat (pallas_call at :263, body `_kernel` at :222).  Per
@@ -8,97 +9,29 @@
 // into VMEM, runs one (nd x nd) MXU matmul v = Af ul, masks the pad-plane
 // columns and slice-adds v[a, :] back into y[b, chan[a], off[a] : ...].
 //
-// On Hopper the gather / matmul / scatter sequence would need either
-// atomics or a second pass for the scatter (blocks run in parallel, in no
-// order).  This kernel uses the "pull" form instead: one thread per output
-// (b, c, m) sums the contributions of the (at most four) local dofs a that
-// land on channel c,
-//     y[b,c,m] = sum_{a: chan[a]=c, 0 <= m-off[a] < Lp} mask[m-off[a]]
-//                * sum_j Af[a,j] * u[b, chan[j], m-off[a]+off[j]],
-// so every output is written exactly once, by one thread, in a fixed order:
-// no atomics, deterministic results, and positions no slice covers stay 0
-// as in `_kernel`.
-//
-// What bounds it on the card: the streaming minimum is one read of u and
-// one write of y (B*C*Lu elements each; 53 MB each way at the main-path
-// shape B = 16, C = 81, Lu = 5120 in float64).  The pull form re-reads each
-// u element up to ~4*nd/C times per output channel; consecutive threads own
-// consecutive m, so every re-read is a coalesced row read that the L1/L2
-// caches serve.  The a-list, channel offsets (`src`) and Af rows are the
-// same for every thread of a block and go through the read-only path
-// (__ldg) as broadcasts.  Shared-memory E-vector tiles and wgmma are later
-// work.
+// The work is done by the shared output-stationary core
+// (structured_apply_core.cuh: design, bound and determinism are described
+// there).  In the natural layout each local dof's E-vector row is its own
+// one-row gather piece: the core's tables (ops/structured_kernel.py,
+// `core_tables(p, shape, "natural")`) list its channel and offset.
 
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int kMaxA = 4;      // local dofs that map to one channel
-constexpr int kThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-structured_apply_pull(const T* __restrict__ Af, const T* __restrict__ u,
-                      const T* __restrict__ mask, T* __restrict__ y,
-                      const int* __restrict__ src,
-                      const int* __restrict__ arow,
-                      const int* __restrict__ aoff, int C, int nd, int Lp,
-                      int Lu) {
-  const int m = blockIdx.x * kThreads + threadIdx.x;
-  const int bc = blockIdx.y;  // b * C + c
-  if (m >= Lu) return;
-  const int c = bc % C;
-  const T* ub = u + static_cast<size_t>(bc - c) * Lu;  // u[b, 0, 0]
-  T acc = T(0);
-#pragma unroll
-  for (int k = 0; k < kMaxA; ++k) {
-    const int a = __ldg(arow + c * kMaxA + k);
-    if (a < 0) break;
-    const int q = m - __ldg(aoff + c * kMaxA + k);
-    if (q < 0 || q >= Lp) continue;
-    const T w = __ldg(mask + q);
-    if (w == T(0)) continue;  // pad-plane column: its product is masked out
-    const T* row = Af + static_cast<size_t>(a) * nd;
-    T s = T(0);
-    for (int j = 0; j < nd; ++j) {
-      s += __ldg(row + j) * __ldg(ub + __ldg(src + j) + q);
-    }
-    acc += w * s;
-  }
-  y[static_cast<size_t>(bc) * Lu + m] = acc;
-}
-
-template <typename T>
-int launch(const void* Af, const void* u, const void* mask, void* y,
-           const void* src, const void* arow, const void* aoff, int B, int C,
-           int nd, int Lp, int Lu, void* stream) {
-  const dim3 grid((Lu + kThreads - 1) / kThreads, B * C);
-  structured_apply_pull<T><<<grid, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(Af), static_cast<const T*>(u),
-      static_cast<const T*>(mask), static_cast<T*>(y),
-      static_cast<const int*>(src), static_cast<const int*>(arow),
-      static_cast<const int*>(aoff), C, nd, Lp, Lu);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "structured_apply_core.cuh"
 
 // Plain C interface (bound with ctypes).  Pointers are device pointers;
-// `stream` is the caller's cudaStream_t.  Returns cudaGetLastError() after
-// the launch (0 on success).
+// `tables` is the int32 table block of the core; `stream` is the caller's
+// cudaStream_t.  Returns the CUDA error of the launch (0 on success).
 extern "C" int palace_structured_apply_f64(
-    const void* Af, const void* u, const void* mask, void* y, const void* src,
-    const void* arow, const void* aoff, int B, int C, int nd, int Lp, int Lu,
-    void* stream) {
-  return launch<double>(Af, u, mask, y, src, arow, aoff, B, C, nd, Lp, Lu,
-                        stream);
+    const void* Af, const void* u, const void* mask, void* y,
+    const void* tables, int B, int C, int nd, int Lp, int Lu, int nr, int ng,
+    int nw, void* stream) {
+  return palace_core::launch<double>(Af, u, mask, y, tables, B, C, nd, Lp,
+                                     Lu, nr, ng, nw, stream);
 }
 
 extern "C" int palace_structured_apply_f32(
-    const void* Af, const void* u, const void* mask, void* y, const void* src,
-    const void* arow, const void* aoff, int B, int C, int nd, int Lp, int Lu,
-    void* stream) {
-  return launch<float>(Af, u, mask, y, src, arow, aoff, B, C, nd, Lp, Lu,
-                       stream);
+    const void* Af, const void* u, const void* mask, void* y,
+    const void* tables, int B, int C, int nd, int Lp, int Lu, int nr, int ng,
+    int nw, void* stream) {
+  return palace_core::launch<float>(Af, u, mask, y, tables, B, C, nd, Lp, Lu,
+                                    nr, ng, nw, stream);
 }

@@ -1,6 +1,8 @@
 """Uniform box-hex ND apply on the flattened padded lattice: the two
 hand-written Hopper kernels (csrc/structured_apply.cu, natural channel
-order; csrc/structured_apply_v2.cu, carry-class channel order), their plain
+order; csrc/structured_apply_v2.cu, carry-class channel order; both thin
+entry points of the shared float64 tensor-core core
+csrc/structured_apply_core.cuh), their tables (`core_tables`), their plain
 PyTorch versions, and the flat layout helpers.
 
 The counterpart of palace_tpu/ops/pallas_structured.py (`_flat_tables`,
@@ -39,7 +41,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "palace_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_MAX_A = 4  # local dofs per channel (kMaxA in the CUDA source)
+_MAX_A = 4  # local dofs per channel: contributions an output sums (kMaxA)
+_TILE = 64  # output columns per CTA (kTile in the core)
+_PASS_NT = 24  # n-tiles of 8 rows in one pass (kPassNt in the core)
+_MAX_SHIFT = 32  # a window's largest shift (kMaxShift in the core)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -149,16 +154,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources():
+def _sources(ext: str = ".cu"):
     return sorted(os.path.join(CSRC_DIR, n) for n in os.listdir(CSRC_DIR)
-                  if n.endswith(".cu"))
+                  if n.endswith(ext))
 
 
 def _library_path(source: str) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """build/.../lib<stem>_<hash>.so, the hash taken over the source, every
+    csrc/*.cuh header and the compiler flags, so that editing a shared
+    header rebuilds every library."""
+    digest = hashlib.sha256()
+    for path in [source, *_sources(".cuh")]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
 def build_kernels() -> List[Tuple[str, str]]:
@@ -195,9 +206,11 @@ def build_kernels() -> List[Tuple[str, str]]:
     return built
 
 
-#: (pointer, int) argument counts of each source's entry points
-#: palace_<stem>_f64 and palace_<stem>_f32; the stream pointer comes last.
-_ENTRY_ARGS = {"structured_apply": (7, 5), "structured_apply_v2": (8, 6)}
+#: The source of each layout's entry points palace_<stem>_{f64,f32}, which
+#: take (Af, u, mask, y, tables, B, C, nd, Lp, Lu, nr, ng, nw, stream).
+_STEM = {"natural": "structured_apply", "class": "structured_apply_v2"}
+_ENTRY_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,11 +219,9 @@ def _library(stem: str) -> ctypes.CDLL:
     first call), with its entry points' ctypes signatures set."""
     build_kernels()
     lib = ctypes.CDLL(_library_path(os.path.join(CSRC_DIR, f"{stem}.cu")))
-    n_ptr, n_int = _ENTRY_ARGS[stem]
     for dtype in ("f64", "f32"):
         fn = getattr(lib, f"palace_{stem}_{dtype}")
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+        fn.argtypes = _ENTRY_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -228,36 +239,115 @@ def _check_launchable(Af: torch.Tensor, u_flat: torch.Tensor, p: int,
         raise ValueError("Af and u_flat must be contiguous")
 
 
-def _pull_tables(rows, chans, offs, C: int):
-    """(arow, aoff) of a pull scatter: per channel, the E-vector rows landing
-    on it and their flat offsets, in the given order (-1 padded)."""
-    arow = np.full((C, _MAX_A), -1, np.int32)
-    aoff = np.zeros((C, _MAX_A), np.int32)
-    fill = np.zeros(C, np.int64)
-    for r, c, off in zip(rows, chans, offs):
-        if fill[c] >= _MAX_A:
-            raise ValueError(f"channel {c} has more than {_MAX_A} local dofs")
-        arow[c, fill[c]] = r
-        aoff[c, fill[c]] = off
-        fill[c] += 1
-    return arow, aoff
-
-
 def _on_device(device: torch.device, *pairs):
     return tuple(torch.as_tensor(a, dtype=dt, device=device).contiguous()
                  for a, dt in pairs)
 
 
+def _row_geometry(p: int, shape: Tuple[int, int, int], layout: str):
+    """(chan, off): per row of the layout's element matrix (Af for
+    "natural", Af_perm for "class"), its lattice channel and flat offset."""
+    if layout == "natural":
+        chan, offs, _, _, _, _, _ = _flat_tables(p, shape)
+        return np.asarray(chan, np.int64), np.asarray(offs, np.int64)
+    _, _, slices = _class_tables(p, shape)
+    chan = [c0 + i for (_, nr, c0, _) in slices for i in range(nr)]
+    offs = [off for (_, nr, _, off) in slices for _ in range(nr)]
+    return np.asarray(chan, np.int64), np.asarray(offs, np.int64)
+
+
 @functools.lru_cache(maxsize=None)
-def _device_tables(p: int, shape: Tuple[int, int, int], dtype: torch.dtype,
-                   device: torch.device):
-    """(mask, src, arow, aoff) on the device: src[j] = chan[j] Lu + off[j];
-    arow/aoff list, per channel, the local dofs landing on it (-1 padded)."""
-    chan, offs, mask, _, _, Lu, _ = _flat_tables(p, shape)
-    arow, aoff = _pull_tables(range(len(chan)), chan, offs, 3 * p ** 3)
-    src = (np.asarray(chan) * Lu + np.asarray(offs)).astype(np.int32)
-    return _on_device(device, (mask, dtype), (src, torch.int32),
-                      (arow, torch.int32), (aoff, torch.int32))
+def core_tables(p: int, shape: Tuple[int, int, int], layout: str):
+    """The tables of the shared kernel core (csrc/structured_apply_core.cuh)
+    for one layout, as it reads them.  Returns (tables, (nr, ng, nw)):
+    `tables` is the int32 block [src | rowmap | ntgroup | goff | gwin |
+    gshift | woff | wspan | chanrows] (see the core's `Params`):
+
+    - groups: the rows' distinct flat offsets, ascending; each group's rows
+      in Af's row order, padded with -1 to a multiple of 8 (nr rows in
+      all), in n-tiles of 8 rows;
+    - windows: consecutive groups whose offsets lie within _MAX_SHIFT of
+      the first share one window at the last one's offset e (offsets 0, 1,
+      sy, sy + 1 and sx, sx + 1, sx + sy while nz <= 30); a group
+      reads it shifted by e - offset;
+    - passes: the kernel takes the nr / 8 n-tiles in ceil(nr / 8 /
+      _PASS_NT) passes of equal size (one at p <= 3, two at p = 4);
+    - src[k] = chan[k] Lu + off[k], where E-vector row k starts in u[b];
+    - chanrows[c]: the padded rows of channel c in group order, -1 padded
+      to _MAX_A: the contributions the kernel sums into one output."""
+    shape = tuple(shape)
+    chan, offs = _row_geometry(p, shape, layout)
+    Lu = _flat_tables(p, shape)[5]
+    C = 3 * p ** 3
+    if np.bincount(chan, minlength=C).max() > _MAX_A:
+        raise ValueError(f"a channel has more than {_MAX_A} local dofs")
+    goff = np.unique(offs)
+    group = np.searchsorted(goff, offs)
+    first, gwin = [], []
+    for o in goff.tolist():
+        if not first or o - first[-1] > _MAX_SHIFT:
+            first.append(o)
+        gwin.append(len(first) - 1)
+    gwin = np.asarray(gwin, np.int64)
+    woff = np.asarray([goff[gwin == w].max() for w in range(len(first))])
+    gshift = woff[gwin] - goff
+    wspan = woff - np.asarray(first)
+    rowmap = []
+    for g in range(len(goff)):
+        rows = np.flatnonzero(group == g).tolist()
+        if len(set(chan[rows].tolist())) != len(rows):
+            raise ValueError(f"group {g} holds a channel twice")
+        rowmap += rows + [-1] * (-len(rows) % 8)
+    rowmap = np.asarray(rowmap, np.int64)
+    nr = len(rowmap)
+    chanrows = np.full((C, _MAX_A), -1, np.int64)
+    fill = np.zeros(C, np.int64)
+    for r in np.flatnonzero(rowmap >= 0):
+        c = chan[rowmap[r]]
+        chanrows[c, fill[c]] = r
+        fill[c] += 1
+    ntgroup = group[rowmap[::8]]
+    tables = np.concatenate([chan * Lu + offs, rowmap, ntgroup, goff, gwin,
+                             gshift, woff, wspan, chanrows.ravel()])
+    tables = tables.astype(np.int32)
+    return tables, (nr, len(goff), len(woff))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_core_tables(p: int, shape: Tuple[int, int, int], layout: str,
+                        dtype: torch.dtype, device: torch.device):
+    """(mask, tables) on the device and (nr, ng, nw) of `core_tables`."""
+    _, _, mask, _, _, _, _ = _flat_tables(p, shape)
+    tables, counts = core_tables(p, shape, layout)
+    return _on_device(device, (mask, dtype), (tables, torch.int32)) + (
+        counts,)
+
+
+def _launch(layout: str, Af: torch.Tensor, u_flat: torch.Tensor, p: int,
+            shape) -> torch.Tensor:
+    """Launch the layout's kernel on the current stream (the caller counts
+    the launch); raises on a CUDA error."""
+    _check_launchable(Af, u_flat, p, shape)
+    _, _, _, _, Lp, Lu, _ = _flat_tables(p, shape)
+    B, C, _ = u_flat.shape
+    nd = Af.shape[0]
+    if B > 65535 or B * C * Lu >= 2 ** 31 or Lu % _TILE:
+        raise ValueError(f"batch or layout too large for the kernel grid "
+                         f"(B={B}, Lu={Lu})")
+    if Af.data_ptr() % 16 or u_flat.data_ptr() % 16:
+        raise ValueError("Af and u_flat must be 16-byte aligned")
+    mask, tables, (nr, ng, nw) = _device_core_tables(
+        p, shape, layout, u_flat.dtype, u_flat.device)
+    stem = _STEM[layout]
+    fn = getattr(_library(stem), f"palace_{stem}_"
+                      f"{'f64' if u_flat.dtype == torch.float64 else 'f32'}")
+    y = torch.empty_like(u_flat)
+    stream = torch.cuda.current_stream(u_flat.device).cuda_stream
+    err = fn(Af.data_ptr(), u_flat.data_ptr(), mask.data_ptr(), y.data_ptr(),
+             tables.data_ptr(), B, C, nd, Lp, Lu, nr, ng, nw, stream)
+    if err != 0:
+        raise RuntimeError(f"{stem} kernel launch failed: CUDA error {err}")
+    return y
 
 
 def structured_apply_flat(Af: torch.Tensor, u_flat: torch.Tensor, *, p: int,
@@ -271,25 +361,7 @@ def structured_apply_flat(Af: torch.Tensor, u_flat: torch.Tensor, *, p: int,
     shape = tuple(int(s) for s in shape)
     if u_flat.device.type == "cpu":
         return structured_apply_flat_ref(Af, u_flat, p=p, shape=shape)
-    _check_launchable(Af, u_flat, p, shape)
-    _, _, _, _, Lp, Lu, _ = _flat_tables(p, shape)
-    B, C, _ = u_flat.shape
-    nd = Af.shape[0]
-    if B * C > 65535 or B * C * Lu >= 2 ** 31:
-        raise ValueError(f"batch too large for the kernel grid (B={B})")
-    mask, src, arow, aoff = _device_tables(p, shape, u_flat.dtype,
-                                           u_flat.device)
-    lib = _library("structured_apply")
-    fn = (lib.palace_structured_apply_f64 if u_flat.dtype == torch.float64
-          else lib.palace_structured_apply_f32)
-    y = torch.empty_like(u_flat)
-    stream = torch.cuda.current_stream(u_flat.device).cuda_stream
-    err = fn(Af.data_ptr(), u_flat.data_ptr(), mask.data_ptr(), y.data_ptr(),
-             src.data_ptr(), arow.data_ptr(), aoff.data_ptr(), B, C, nd, Lp,
-             Lu, stream)
-    if err != 0:
-        raise RuntimeError(f"structured_apply kernel launch failed: CUDA "
-                           f"error {err}")
+    y = _launch("natural", Af, u_flat, p, shape)
     structured_apply_flat.launches += 1
     return y
 
@@ -405,23 +477,6 @@ def structured_apply_flat_v2_ref(Af_perm: torch.Tensor,
     return y
 
 
-@functools.lru_cache(maxsize=None)
-def _device_tables_v2(p: int, shape: Tuple[int, int, int],
-                      dtype: torch.dtype, device: torch.device):
-    """(mask, slices, arow, aoff) on the device: slices (S, 4) int32 rows of
-    (row0, nrows, chan0, offset); arow/aoff list, per permuted channel, the
-    E-vector rows landing on it and their flat offsets (-1 padded)."""
-    _, _, mask, _, _, _, _ = _flat_tables(p, shape)
-    _, _, slices = _class_tables(p, shape)
-    rows = [r0 + i for (r0, nr, _, _) in slices for i in range(nr)]
-    chans = [c0 + i for (_, nr, c0, _) in slices for i in range(nr)]
-    offs = [off for (_, nr, _, off) in slices for _ in range(nr)]
-    arow, aoff = _pull_tables(rows, chans, offs, 3 * p ** 3)
-    return _on_device(device, (mask, dtype),
-                      (np.asarray(slices, np.int32), torch.int32),
-                      (arow, torch.int32), (aoff, torch.int32))
-
-
 def structured_apply_flat_v2(Af_perm: torch.Tensor, u_flat_perm: torch.Tensor,
                              *, p: int, shape) -> torch.Tensor:
     """y_flat = A @ u_flat on the flattened padded lattice with channels in
@@ -433,28 +488,7 @@ def structured_apply_flat_v2(Af_perm: torch.Tensor, u_flat_perm: torch.Tensor,
     if u_flat_perm.device.type == "cpu":
         return structured_apply_flat_v2_ref(Af_perm, u_flat_perm, p=p,
                                             shape=shape)
-    _check_launchable(Af_perm, u_flat_perm, p, shape)
-    _, _, _, _, Lp, Lu, _ = _flat_tables(p, shape)
-    B, C, _ = u_flat_perm.shape
-    nd = Af_perm.shape[0]
-    if B * C > 65535 or B * max(C, nd) * Lu >= 2 ** 31:
-        raise ValueError(f"batch too large for the kernel grid (B={B})")
-    mask, slices, arow, aoff = _device_tables_v2(p, shape, u_flat_perm.dtype,
-                                                 u_flat_perm.device)
-    lib = _library("structured_apply_v2")
-    fn = (lib.palace_structured_apply_v2_f64
-          if u_flat_perm.dtype == torch.float64
-          else lib.palace_structured_apply_v2_f32)
-    vl = torch.empty((B, nd, Lp), dtype=u_flat_perm.dtype,
-                     device=u_flat_perm.device)
-    y = torch.empty_like(u_flat_perm)
-    stream = torch.cuda.current_stream(u_flat_perm.device).cuda_stream
-    err = fn(Af_perm.data_ptr(), u_flat_perm.data_ptr(), mask.data_ptr(),
-             vl.data_ptr(), y.data_ptr(), slices.data_ptr(), arow.data_ptr(),
-             aoff.data_ptr(), slices.shape[0], B, C, nd, Lp, Lu, stream)
-    if err != 0:
-        raise RuntimeError(f"structured_apply_v2 kernel launch failed: CUDA "
-                           f"error {err}")
+    y = _launch("class", Af_perm, u_flat_perm, p, shape)
     structured_apply_flat_v2.launches += 1
     return y
 

@@ -4,12 +4,14 @@ CUDA GPU.
 
 Run from the repository root:  python scripts/mutate_kernels.py
 
-Each mutant is a copy of palace_torch/csrc with one deliberate fault in one
-kernel.  The script builds the copy with the port's own nvcc route into a
-temporary directory, launches the faulty kernel through its wrapper and
-holds it against the plain PyTorch version, as chip_smoke.py's kernel phase
-does (max abs err <= 1e-12 x max |y| in float64).  The unaltered copy must
-pass; every mutant must fail.  Exits nonzero when the control fails or a
+Each mutant is a copy of palace_torch/csrc with one deliberate fault in the
+shared core (structured_apply_core.cuh), which both kernels' entry points
+(structured_apply.cu, structured_apply_v2.cu) compile.  The script builds
+the copy with the port's own nvcc route into a temporary directory,
+launches both faulty kernels through their wrappers and holds each against
+its plain PyTorch version, as chip_smoke.py's kernel phase does (max abs err
+<= 1e-12 x max |y| in float64).  The unaltered copy must pass for both;
+every mutant must fail for both.  Exits nonzero when the control fails or a
 mutant survives, and when CUDA is not available.
 """
 
@@ -20,22 +22,24 @@ import shutil
 import sys
 import tempfile
 
-#: (kernel stem, mutant name, [(text in the source, its replacement)]).
+STEMS = ("structured_apply", "structured_apply_v2")
+#: (file in csrc, mutant name, [(text in the file, its replacement)]).
 MUTANTS = [
-    ("structured_apply", "pull drops a local dof",
-     [("acc += w * s;", "if (k > 0) acc += w * s;")]),
-    ("structured_apply", "no pad-column mask",
-     [("if (w == T(0)) continue;", ""), ("acc += w * s;", "acc += s;")]),
-    ("structured_apply", "product skips a term",
-     [("for (int j = 0; j < nd; ++j) {", "for (int j = 1; j < nd; ++j) {")]),
-    ("structured_apply_v2", "pull drops a local dof",
-     [("acc += vb[", "if (k > 0) acc += vb[")]),
-    ("structured_apply_v2", "no pad-column mask",
-     [("= wm * acc[j];", "= acc[j];")]),
-    ("structured_apply_v2", "product skips a term",
-     [("for (int k = 0; k < nd; ++k) {", "for (int k = 1; k < nd; ++k) {")]),
+    ("structured_apply_core.cuh", "one k-chunk dropped from the product",
+     [("ks < kChunk; ks += kStep", "ks < kChunk * (c != 1); ks += kStep")]),
+    ("structured_apply_core.cuh", "a group's window shifted by one column",
+     [("gshift[cur],", "gshift[cur] + (cur == 2),")]),
+    ("structured_apply_core.cuh", "no pad-column mask",
+     [("v += msk[g * kTile + t] * Ds[", "v += Ds[")]),
+    ("structured_apply_core.cuh", "one offset group skipped",
+     [("gact |= 1u << g;", "gact |= unsigned(g != 3) << g;")]),
+    ("structured_apply_core.cuh", "one of a channel's contributions dropped",
+     [("a < kMaxA; ++a", "a < kMaxA - 1; ++a")]),
+    ("structured_apply_core.cuh", "a later pass drops the earlier passes' sum",
+     [("v = *yo;", "v = T(0);")]),
 ]
-CASES = [(2, (3, 2, 4)), (3, (6, 5, 4))]
+#: p = 4 runs the core's two passes, p <= 3 one.
+CASES = [(2, (3, 2, 4)), (3, (6, 5, 4)), (4, (3, 2, 4))]
 BATCH = 4
 TOL = 1e-12
 
@@ -68,21 +72,21 @@ def _max_rel_err(stem: str) -> float:
     return worst
 
 
-def _run(stem: str, edits) -> float:
-    """Build a copy of csrc (with `edits` = [(old, new)] applied to
-    <stem>.cu) into a fresh directory and check <stem>."""
+def _run(name: str, edits) -> dict:
+    """Build a copy of csrc (with `edits` = [(old, new)] applied to csrc/
+    <name>) into a fresh directory; {stem: max rel err} of both kernels."""
     from palace_torch.ops import structured_kernel as sk
 
     saved = sk.CSRC_DIR, sk.BUILD_DIR
     with tempfile.TemporaryDirectory() as tmp:
         csrc = os.path.join(tmp, "csrc")
         shutil.copytree(saved[0], csrc)
-        path = os.path.join(csrc, f"{stem}.cu")
+        path = os.path.join(csrc, name)
         with open(path) as f:
             text = f.read()
         for old, new in edits:
             if text.count(old) != 1:
-                raise SystemExit(f"{stem}.cu: {old!r} occurs "
+                raise SystemExit(f"{name}: {old!r} occurs "
                                  f"{text.count(old)} times, not once")
             text = text.replace(old, new)
         with open(path, "w") as f:
@@ -90,7 +94,7 @@ def _run(stem: str, edits) -> float:
         sk.CSRC_DIR, sk.BUILD_DIR = csrc, os.path.join(tmp, "build")
         sk._library.cache_clear()
         try:
-            return _max_rel_err(stem)
+            return {stem: _max_rel_err(stem) for stem in STEMS}
         finally:
             sk.CSRC_DIR, sk.BUILD_DIR = saved
             sk._library.cache_clear()
@@ -102,19 +106,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is false", flush=True)
         return 1
+    errs = _run("structured_apply_core.cuh", [])
     ok = True
-    for stem in ("structured_apply", "structured_apply_v2"):
-        err = _run(stem, [])
+    for stem, err in errs.items():
         passed = err <= TOL
         ok &= passed
         print(f"{stem} unaltered: max rel err {err:.3e} "
               f"({'agrees' if passed else 'DISAGREES'})", flush=True)
-    for stem, name, edits in MUTANTS:
-        err = _run(stem, edits)
-        caught = err > TOL
-        ok &= caught
-        print(f"{stem} mutant '{name}': max rel err {err:.3e} "
-              f"({'caught' if caught else 'SURVIVED'})", flush=True)
+    for name, mutant, edits in MUTANTS:
+        for stem, err in _run(name, edits).items():
+            caught = err > TOL
+            ok &= caught
+            print(f"{stem} mutant '{mutant}': max rel err {err:.3e} "
+                  f"({'caught' if caught else 'SURVIVED'})", flush=True)
     print("mutation check " + ("passed" if ok else "FAILED"), flush=True)
     return 0 if ok else 1
 

@@ -1,6 +1,9 @@
 """The hand-written structured-apply kernels (natural channel order and
 carry-class order) against their plain PyTorch versions on the card (float64
-tolerance 1e-12, float32 1e-5, relative to max |y|).  These tests need a
+tolerance 1e-12, float32 1e-5, relative to max |y|).  At p = 3 the shapes
+(2, 3, 31) and (2, 2, 33) have three and four windows, so the kernel keeps
+three and two k-chunks in shared memory instead of four; at p = 4 the kernel
+takes its 39 n-tiles in two passes.  These tests need a
 CUDA device and skip without one; the file imports no jax, so on a machine
 without JAX run it as
     python -m pytest tests/port/test_torch_kernel_cuda.py -q --noconftest
@@ -32,7 +35,9 @@ def _inputs(p, shape, dtype, device, batch=16, seed=5):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,shape", [(1, (3, 2, 4)), (2, (3, 2, 4)),
-                                     (3, (3, 2, 4)), (2, (5, 7, 3))])
+                                     (3, (3, 2, 4)), (2, (5, 7, 3)),
+                                     (3, (2, 3, 31)), (3, (2, 2, 33)),
+                                     (4, (3, 2, 4)), (4, (6, 5, 7))])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 def test_kernel_matches_plain_on_card(cuda_device, p, shape, dtype, tol):
@@ -61,7 +66,9 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,shape", [(1, (3, 2, 4)), (2, (3, 2, 4)),
                                      (3, (3, 2, 4)), (2, (5, 7, 3)),
-                                     (3, (12, 12, 12))])
+                                     (3, (12, 12, 12)), (3, (2, 3, 31)),
+                                     (3, (2, 2, 33)), (4, (3, 2, 4)),
+                                     (4, (6, 5, 7))])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 def test_class_kernel_matches_plain_on_card(cuda_device, p, shape, dtype,

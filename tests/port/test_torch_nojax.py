@@ -1,7 +1,8 @@
 """The port imports nothing of JAX and nothing of the JAX package.
 
 - Statically: an AST scan of every palace_torch source, chip_smoke.py and
-  scripts/profile_torch_slice.py finds no import of jax, jaxlib or
+  the port's scripts (profile_torch_slice.py, mutate_kernels.py,
+  ab_kernel_core.py) finds no import of jax, jaxlib or
   palace_tpu, function-level imports and string imports (`__import__`,
   `importlib.import_module`) included.
 - At run time: in a fresh interpreter whose import system refuses those
@@ -62,8 +63,10 @@ print("NOJAX-OK")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "scripts", "profile_torch_slice.py")]
+    out = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "scripts", name) for name in (
+            "profile_torch_slice.py", "mutate_kernels.py",
+            "ab_kernel_core.py")]
     for d, _, files in os.walk(os.path.join(REPO, "palace_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
