@@ -9,10 +9,12 @@ structured fine level engages.
 `write_slice_case` writes the driven check of the port's first path: tan
 delta 0.01, a z-directed current dipole near the centre, and an 8-point
 2.0-5.5 GHz sweep (one frequency block, below the first resonance) solved by
-FGMRES + geometric multigrid.  `write_eigen_case` writes the eigenmode check:
-the cavity made lossless (tan delta 0, no ports, so the linear branch runs),
-the 4 modes nearest 5.0 GHz at Tol 1e-8, with the iterative (GMG) inner
-solver by default.
+FGMRES + geometric multigrid.  `write_adaptive_case` writes the same driven
+cavity as an adaptive PROM sweep over 2.0-7.0 GHz in 0.1 GHz steps, a band
+that crosses the first resonance (Q about 100 from the loss tangent).
+`write_eigen_case` writes the eigenmode check: the cavity made lossless (tan
+delta 0, no ports, so the linear branch runs), the 4 modes nearest 5.0 GHz
+at Tol 1e-8, with the iterative (GMG) inner solver by default.
 """
 
 from __future__ import annotations
@@ -54,6 +56,25 @@ def write_slice_case(directory: str, n: int, order: int, *, tol: float = 1e-8,
         {"Order": order, "Device": device,
          "Driven": {"MinFreq": 2.0, "MaxFreq": 5.5, "FreqStep": 0.5},
          "Linear": {"Type": "GMG", "Tol": tol, "MaxIts": max_its}},
+        {"CurrentDipole": [{"Index": 1, "Moment": 1.0,
+                            "Center": [11.0, 12.5, 13.0],
+                            "Direction": [0.0, 0.0, 1.0]}]})
+
+
+def write_adaptive_case(directory: str, n: int, order: int, *,
+                        tol: float = 1e-8, device: str = "GPU",
+                        verbose: int = 1) -> str:
+    """Write box.msh and case.json of the adaptive sweep (AdaptiveTol 1e-6,
+    at most 20 samples, stop after 2 below it) into `directory`; returns
+    the config path."""
+    return _write(
+        directory, n, {"Type": "Driven", "Verbose": verbose},
+        {"Permeability": 1.0, "Permittivity": 2.0, "LossTan": 0.01},
+        {"Order": order, "Device": device,
+         "Driven": {"MinFreq": 2.0, "MaxFreq": 7.0, "FreqStep": 0.1,
+                    "AdaptiveTol": 1e-6, "AdaptiveMaxSamples": 20,
+                    "AdaptiveMemory": 2},
+         "Linear": {"Type": "GMG", "Tol": tol, "MaxIts": 200}},
         {"CurrentDipole": [{"Index": 1, "Moment": 1.0,
                             "Center": [11.0, 12.5, 13.0],
                             "Direction": [0.0, 0.0, 1.0]}]})

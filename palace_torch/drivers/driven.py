@@ -1,11 +1,11 @@
-"""Driven (frequency sweep) driver (counterpart of palace_tpu/drivers/driven.py,
-uniform sweep).
+"""Driven (frequency sweep) driver (counterpart of palace_tpu/drivers/driven.py).
 
 Per sweep: assemble the term-structured system, solve all frequencies of
 each excitation as one blocked FGMRES + p-MG system on the run's device (or
-per frequency with host sparse direct), measure port V/I/S/power, domain
-energies and probes, compute error indicators, and write the reference CSV
-table set.
+per frequency with host sparse direct), or, with `AdaptiveTol > 0`, build
+the adaptive PROM (`driven_adaptive.sweep_adaptive`) and evaluate it at
+every frequency; then measure port V/I/S/power, domain energies and probes,
+compute error indicators, and write the reference CSV table set.
 
 Deliberate divergence from the JAX package: an exception raised on the
 device path propagates; there is no silent re-solve with sparse direct.
@@ -198,8 +198,6 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
                                              grad_flux_indicators)
     from palace_torch.post import metadata
 
-    if iodata.solver.driven.adaptive_tol > 0.0:
-        unported("The adaptive PROM sweep (AdaptiveTol > 0)", "adaptive PROM")
     _check_postprocessing(iodata)
     units = iodata.units
     with timers.block("Operator construction"):
@@ -219,17 +217,32 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
     # (flattened excitation-major index, 1-based) and reload their fields.
     restart = max(int(iodata.solver.driven.restart), 1)
     skip = restart - 1
-    with timers.block("Linear solve"):
-        sols = sweep_uniform(iodata, sop, omegas, excitations, skip=skip)
-    ckpt = os.path.join(post_dir, "checkpoint-E.npz")
-    if skip > 0 and os.path.exists(ckpt):
-        old = np.load(ckpt)
-        for key in old.files:
-            ex, i = map(int, key.split("_"))
-            if (ex, i) not in sols and i < len(omegas):
-                sols[(ex, i)] = old[key]
-    np.savez_compressed(ckpt, **{f"{ex}_{i}": E
-                                 for (ex, i), E in sols.items()})
+    prom = None
+    if iodata.solver.driven.adaptive_tol > 0.0:
+        from palace_torch.drivers.driven_adaptive import (PromReport,
+                                                          sweep_adaptive)
+
+        if restart > 1:
+            raise ValueError('"Restart" is incompatible with adaptive sweeps')
+        # palace.json then counts no linear-solver iterations, as the JAX
+        # package's does; the HDM solves are in `prom` and provenance.
+        sweep_uniform_device._last_info = None
+        prom = PromReport()
+        with timers.block("PROM construction"):
+            sols = sweep_adaptive(iodata, sop, omegas, excitations, prom,
+                                  post_dir=post_dir)
+    else:
+        with timers.block("Linear solve"):
+            sols = sweep_uniform(iodata, sop, omegas, excitations, skip=skip)
+        ckpt = os.path.join(post_dir, "checkpoint-E.npz")
+        if skip > 0 and os.path.exists(ckpt):
+            old = np.load(ckpt)
+            for key in old.files:
+                ex, i = map(int, key.split("_"))
+                if (ex, i) not in sols and i < len(omegas):
+                    sols[(ex, i)] = old[key]
+        np.savez_compressed(ckpt, **{f"{ex}_{i}": E
+                                     for (ex, i), E in sols.items()})
 
     with timers.block("Postprocessing"):
         probe_locs = None
@@ -271,7 +284,7 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
     metadata.save_timing(post_dir)
     return (dict(post_dir=post_dir, num_dofs=sop.space.num_dofs,
                  freqs_ghz=freqs_ghz, measurements=measurements, sop=sop,
-                 solutions=sols, omegas=omegas, ksp=ksp_info,
+                 solutions=sols, omegas=omegas, ksp=ksp_info, prom=prom,
                  provenance=provenance.snapshot()),
             eta2_steps, energies)
 

@@ -70,12 +70,13 @@ def boundary_mass_bucket(tb: NDTraceBasis, coef: np.ndarray) -> BucketTables:
     return BucketTables(gidx=tb.dofs, A=A)
 
 
-def boundary_rhs(tb: NDTraceBasis, fvals: np.ndarray, num_dofs: int
-                 ) -> np.ndarray:
-    """rhs[n] = sum_f sum_q w f(x_q) . v_n over the trace facets;
-    fvals: (n, nq, sdim) field values at the trace quadrature points."""
-    contrib = np.einsum("fq,fqs,fqns->fn", tb.tr.wdetJ, fvals, tb.V,
-                        optimize=True)
+def boundary_rhs(tb: NDTraceBasis, fvals: np.ndarray, num_dofs: int,
+                 tangential: bool = False) -> np.ndarray:
+    """rhs[n] = sum_f sum_q w f(x_q) . v_n over the trace facets (v_n
+    tangentially projected if `tangential`); fvals: (n, nq, sdim) field
+    values at the trace quadrature points."""
+    contrib = np.einsum("fq,fqs,fqns->fn", tb.tr.wdetJ, fvals,
+                        tb.Vt if tangential else tb.V, optimize=True)
     out = np.zeros(num_dofs, fvals.dtype if fvals.dtype.kind == "c" else float)
     np.add.at(out, tb.dofs.ravel(), contrib.ravel())
     return out

@@ -321,6 +321,43 @@ class SpaceOperator:
         out[self.ess_mask] = 0.0
         return out
 
+    def lumped_port_primary_et(self, idx: int) -> np.ndarray:
+        """Tangential port-mode field E_t with unity-Z_R normalization,
+        L2-projected onto the ND trace space by a port-boundary mass solve
+        (copied from palace_tpu/models/spaceoperator.py
+        lumped_port_primary_et; reference: spaceoperator.cpp:1083-1111
+        GetLumpedPortExcitationVectorPrimaryEt).  DOF interpolation instead
+        of the mass solve would break the |e_t| normalization the PROM
+        circuit synthesis relies on (romoperator.cpp:624-675)."""
+        from scipy.sparse.linalg import splu
+
+        port = self.ports[idx]
+        b = np.zeros(self.space.num_dofs)
+        rows, cols, vals = [], [], []
+        for elem, tb in zip(port.elems, self._port_trace_bases[idx]):
+            Rs = 1.0 * port.to_square(elem)  # unity reference impedance
+            Einc = math.sqrt(Rs / (elem.w * elem.l * len(port.elems)))
+            f = elem.mode_field(tb.tr.xq, Einc)
+            b += boundary_rhs(tb, f, self.space.num_dofs, tangential=True)
+            A = np.einsum("fq,fqns,fqms->fnm", tb.tr.wdetJ, tb.Vt, tb.Vt,
+                          optimize=True)
+            n = tb.dofs.shape[1]
+            rows.append(np.repeat(tb.dofs, n, axis=1).ravel())
+            cols.append(np.tile(tb.dofs, (1, n)).ravel())
+            vals.append(A.ravel())
+        M = sp.coo_matrix(
+            (np.concatenate(vals), (np.concatenate(rows),
+                                    np.concatenate(cols))),
+            shape=(self.space.num_dofs,) * 2).tocsr()
+        # Restrict the (otherwise singular) trace mass to dofs with
+        # tangential support on the port surface.
+        diag = M.diagonal()
+        support = np.where(diag > 1e-12 * diag.max())[0]
+        et = np.zeros(self.space.num_dofs)
+        et[support] = splu(M[support][:, support].tocsc()).solve(b[support])
+        et[self.ess_mask] = 0.0  # zero_metal
+        return et
+
     def port_functionals(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
         """(s, v): S-parameter and voltage measurement vectors for port idx."""
         port = self.ports[idx]

@@ -24,8 +24,22 @@ hex, Order 3, as in chip_smoke.py) and reports:
   5. the modes' postprocessing (energies + error indicators) under cProfile.
 Writes chiprun_out/profile_eigen.txt.
 
+--problem adaptive: runs the adaptive PROM case (write_adaptive_case,
+default 12^3 hex, Order 3, as in chip_smoke.py) through palace_torch.run and
+reports:
+  1. the whole run with synchronizing timers around its components: the
+     solver setup, each sample's add_omega (_lmax_est, coarse splu, term
+     sums), the HDM FGMRES solves (kernel #1, ELL SpMV, host coarse solve,
+     V-cycle and Krylov work), reduced_tables, the MRI, the dense PROM
+     solves and the postprocessing;
+  2. one more sample's add_omega under cProfile;
+  3. that sample's HDM solve plain and under torch.profiler: device busy
+     time and top kernels.
+Writes chiprun_out/profile_adaptive.txt.
+
 Each report is printed too.  Usage (repository root):
-    python scripts/profile_torch_slice.py [--problem eigen] [--n N] [--order P]
+    python scripts/profile_torch_slice.py [--problem eigen|adaptive] [--n N]
+        [--order P]
 (--device cpu rehearses the script at a small --n without a GPU.)
 """
 
@@ -362,12 +376,94 @@ def _profile_eigen(args, dev, cuda, sync, lines, work):
     lines.append(prof)
 
 
+def _profile_adaptive(args, dev, cuda, sync, lines, work):
+    import scipy.sparse.linalg as spla
+
+    import palace_torch
+    from palace_torch.cases import write_adaptive_case
+    from palace_torch.config import ValueType
+    from palace_torch.drivers import driven, driven_adaptive
+    from palace_torch.fem import estimators
+    from palace_torch.linalg import device_ksp
+    from palace_torch.ops import structured, structured_kernel
+
+    lines.append(f"case: adaptive n={args.n} order={args.order}")
+    cfg = write_adaptive_case(work, args.n, args.order,
+                              device="GPU" if cuda else "CPU", verbose=0)
+    BDS = device_ksp.BlockedDeviceSolver
+    MRI = driven_adaptive.MinimalRationalInterpolation
+    n0 = structured_kernel.structured_apply_flat.launches
+
+    # The whole run (palace_torch.run) with synchronizing timers around the
+    # components of the greedy loop, the online sweep and postprocessing.
+    res, timed, ct = _patched_run([
+        (BDS, "__init__", "solver setup, once (Galerkin, aux, tables)"),
+        (device_ksp, "_lmax_est", "add_omega: _lmax_est power iterations"),
+        (spla, "splu", "add_omega: coarse splu"),
+        (BDS, "add_omega", "add_omega: other (B(omega) term sums)"),
+        (BDS, "solve", "HDM solve: host layout + copies"),
+        (BDS, "_solve_block", "HDM FGMRES other (MGS, updates)"),
+        (BDS, "_vcycle", "HDM V-cycle other"),
+        (device_ksp, "_ell_apply", "HDM ELL SpMV (G, Gt, P, Pt, aux terms)"),
+        (device_ksp, "_hessenberg_lstsq", "HDM host lstsq"),
+        (BDS, "_coarse_solve", "HDM coarse solve (host splu + copies)"),
+        (structured.StructuredTermApply, "__call__",
+         "HDM structured fine apply (layout + combine)"),
+        (structured, "structured_apply_flat", "HDM kernel #1"),
+        (driven_adaptive, "_reduced_tables", "reduced_tables (host scipy)"),
+        (MRI, "add_sample", "MRI add_sample"),
+        (MRI, "find_max_error", "MRI find_max_error"),
+        (driven_adaptive, "_prom_solve", "PROM dense solves (greedy + online)"),
+        (driven_adaptive, "sweep_adaptive",
+         "PROM other (CGS2, rhs, online V z)"),
+        (driven, "measure_step", "postprocessing: measure_step"),
+        (estimators, "curl_flux_indicators", "postprocessing: curl indicators"),
+        (estimators, "grad_flux_indicators", "postprocessing: grad indicators"),
+        (driven, "write_driven_tables", "postprocessing: tables"),
+    ], sync, lambda: palace_torch.run(cfg))
+    prom = res["prom"]
+    sop = res["sop"]
+    fscale = sop.iodata.units.scale_factor(ValueType.FREQUENCY)
+    lines.append(f"{res['num_dofs']} dofs; {len(prom.samples)} HDM samples "
+                 f"(f* GHz, iterations, relres): " + ", ".join(
+                     f"{om * fscale / (2 * math.pi):.6f} "
+                     f"{prom.hdm_iterations[(ex, om)]} "
+                     f"{prom.hdm_relres[(ex, om)]:.2e}"
+                     for ex, om, _ in prom.samples))
+    lines.append(f"basis {prom.basis_size}, stopped by {prom.stopped_by}; "
+                 f"kernel #1 launches "
+                 f"{structured_kernel.structured_apply_flat.launches - n0}")
+    lines.append(f"run (component timers, synchronizing): {timed:.3f} s")
+    lines += _component_lines(ct, timed)
+
+    # One more sample's host setup under cProfile, then its HDM solve plain
+    # and under torch.profiler (device idle share).
+    solver = prom.solver
+    om = 2 * math.pi * 6.2 / fscale
+    k, prof = _cprofile_top(lambda: solver.add_omega(om))
+    lines.append("add_omega at 6.2 GHz (under cProfile)")
+    lines.append(prof)
+    b = (1j * om * sop.rhs1(1))[:, None]
+    sync()
+    t0 = time.perf_counter()
+    _, info = solver.solve(b, omega_idx=[k])
+    sync()
+    lines.append(f"HDM solve at 6.2 GHz (plain): "
+                 f"{time.perf_counter() - t0:.3f} s, iterations "
+                 f"{info['iterations'].tolist()}, relres "
+                 f"{info['relres'].max():.3e}")
+    _profiled(lambda: solver.solve(b, omega_idx=[k]), cuda, sync, work,
+              lambda: structured_kernel.structured_apply_flat.launches,
+              lines, "HDM solve at 6.2 GHz")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--problem", choices=("driven", "eigen"),
+    ap.add_argument("--problem", choices=("driven", "eigen", "adaptive"),
                     default="driven")
     ap.add_argument("--n", type=int, default=None,
-                    help="cells per side (default 16 driven, 12 eigen)")
+                    help="cells per side (default 16 driven, 12 eigen and "
+                    "adaptive)")
     ap.add_argument("--order", type=int, default=3)
     ap.add_argument("--device", default="cuda:0")
     args = ap.parse_args(argv)
@@ -388,13 +484,14 @@ def main(argv=None) -> int:
                            text=True).stdout.strip() if cuda else "cpu")
     lines = [f"card: {card}; torch {torch.__version__}"]
     work = tempfile.mkdtemp()
-    (_profile_driven if args.problem == "driven" else _profile_eigen)(
+    {"driven": _profile_driven, "eigen": _profile_eigen,
+     "adaptive": _profile_adaptive}[args.problem](
         args, dev, cuda, sync, lines, work)
 
     report = "\n".join(lines)
     os.makedirs("chiprun_out", exist_ok=True)
-    name = "profile_slice.txt" if args.problem == "driven" \
-        else "profile_eigen.txt"
+    name = {"driven": "profile_slice.txt", "eigen": "profile_eigen.txt",
+            "adaptive": "profile_adaptive.txt"}[args.problem]
     with open(os.path.join("chiprun_out", name), "w") as f:
         f.write(report + "\n")
     print(report)

@@ -12,7 +12,8 @@ import torch
 
 import palace_torch
 from palace_torch.__main__ import main as cli_main
-from palace_torch.cases import write_eigen_case, write_slice_case
+from palace_torch.cases import (write_adaptive_case, write_eigen_case,
+                                 write_slice_case)
 from palace_torch.config import IoData
 from palace_torch.device import resolve_device
 from palace_torch.drivers import driven
@@ -41,8 +42,9 @@ def test_resolve_device():
             resolve_device("GPU")
 
 
-@pytest.mark.parametrize("writer", [write_slice_case, write_eigen_case],
-                         ids=["driven", "eigen"])
+@pytest.mark.parametrize("writer", [write_slice_case, write_eigen_case,
+                                    write_adaptive_case],
+                         ids=["driven", "eigen", "adaptive"])
 def test_entry_points_default_to_the_gpu(tmp_path, writer):
     """The case writers and the port's schema pick the GPU unless asked for
     the CPU; without CUDA a run then refuses to start."""
@@ -71,7 +73,7 @@ def test_solver_routing(tmp_path):
 
 @pytest.mark.parametrize("feature,item", [
     ("amr", "electrostatic/magnetostatic/AMR"),
-    ("adaptive", "adaptive PROM"),
+    ("paraview", "surface, far-field and ParaView postprocessing"),
 ])
 def test_unported_features_name_roadmap_item(tmp_path, feature, item):
     iodata = IoData(write_slice_case(str(tmp_path), 2, 1, device="CPU",
@@ -79,7 +81,8 @@ def test_unported_features_name_roadmap_item(tmp_path, feature, item):
     if feature == "amr":
         iodata.model.refinement.max_it = 1
     else:
-        iodata.solver.driven.adaptive_tol = 1e-3
+        iodata.problem.output_formats.paraview = True
+        iodata.solver.driven.save_freqs = [2.0]
     with pytest.raises(NotImplementedError, match=item):
         driven.solve(iodata, output_dir=str(tmp_path / "out"))
 
