@@ -48,7 +48,36 @@ result line):
      at 3.0, 6.2 and 6.9 GHz (1e-4 relative), and the written tables;
   9. adaptive card against host: the 4^3, Order 2 case on the GPU and on
      the CPU; the same sample count, every omega* within one MRI grid step,
-     and domain-E.csv within 1e-5.
+     and domain-E.csv within 1e-5;
+ 10. magnetostatic path: palace_torch.run on the rings case (two square
+     ribbon loops in a graded 280 um box, h = 0.5 um, Nedelec Order 2,
+     1,301,308 dofs, Tol 1e-8) on the GPU; checks both CG solves reached
+     Tol (provenance), a host residual of one solve (scipy CSR of the
+     eliminated K), M symmetric before symmetrization, M within 10% of the
+     analytic ribbon inductances, and the written tables; prints the
+     palace.json timers, the element apply's device time against its
+     bound, the applies per solve, the device idle share of CG iterations
+     and the peak device memory;
+ 11. magnetostatic against palace_tpu: the rings case at h = 1.0, Order 1
+     on the GPU, M within 1e-6 of RINGS_VALIDATION.json's "solved" values;
+     the current sheet of tests/test_drivers_e2e.py:49 on the GPU and on
+     the CPU, terminal-M.csv within 1e-10;
+ 12. electrostatic path: the rings case with the rings as terminals
+     (h = 0.5 um, H1 Order 2, 439,597 dofs, Tol 1e-10, grad-flux
+     indicators on the 1,298,844-dof ND space) on the GPU; checks both
+     solves, a host residual, C symmetric positive definite with C12 < 0,
+     C within 1e-8 of palace_tpu's C for the same config and the
+     error-indicator Norm within 1e-6 of palace_tpu's; the same report as
+     phase 10;
+ 13. electrostatic and AMR, card against host: the rings case at h = 1.0,
+     Order 1 (terminal-C.csv within 1e-9), the parallel plate of
+     tests/test_drivers_e2e.py:25 on the GPU (C = eps A / d to 1e-9), and
+     two tet AMR loops (MaxIts 2) on the GPU and on the CPU: the parallel
+     plate of tests/test_amr.py:42 (terminal-C.csv within 1e-8) and the
+     same box with terminal and ground on adjacent faces (the same element
+     counts per iteration, terminal-C.csv within 1e-8).
+Neither structured-apply kernel runs on phases 10-13 (element-mode
+operators, plain torch); the kernel record counts their launches there (0).
 The line before the last is the kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -92,6 +121,27 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 C0 = 299792458.0  # m/s
 CAVITY_L, CAVITY_EPS = 24e-3, 2.0  # palace_torch/cases.py
+EPS0 = 8.8541878188e-12  # F/m
+#: The static phases' rings cases: cell size (um) and order, and the CG cap
+#: of the magnetostatic case (the curl-curl system needs more iterations
+#: than palace_tpu's default cap of 1000 at this size).
+RINGS_H, RINGS_ORDER, RINGS_MAG_MAX_ITS = 0.5, 2, 5000
+#: ND dofs of the magnetostatic mesh (its PEC ring sheets cracked: 176
+#: duplicated nodes) and H1 dofs of the electrostatic one (uncracked; its ND
+#: indicator space has 1,298,844 dofs).
+RINGS_DOFS = {"Magnetostatic": 1301308, "Electrostatic": 439597}
+#: palace_tpu's rings electrostatic result at h = 0.5, Order 2, Tol 1e-10
+#: (CG 959 and 957 iterations), computed on the CPU by
+#:   d=$(mktemp -d); python -c "from palace_torch.cases import \
+#:   write_rings_case as w; print(w('$d', 0.5, 2, problem='Electrostatic', \
+#:   tol=1e-10, max_its=3000, device='CPU'))"
+#: then, with "Device" removed from $d/case.json,
+#:   JAX_PLATFORMS=cpu PALACE_TPU_MULTICHIP=0 python -m palace_tpu \
+#:   $d/case.json
+#: (the result's C in farads; Norm from its error-indicators.csv).
+RINGS_ES_TPU_C = [[5.181174572026425e-16, -2.3796437526088713e-16],
+                  [-2.3796437526088713e-16, 1.7534384774114701e-15]]
+RINGS_ES_TPU_NORM = 1.906768991038e-01
 
 
 class SmokeFailure(Exception):
@@ -453,8 +503,9 @@ def _durations(post: str) -> str:
     with open(os.path.join(post, "palace.json")) as f:
         dur = json.load(f)["ElapsedTime"]["Durations"]
     return ", ".join(f"{k} {dur[k]:.2f} s" for k in (
-        "Operatorconstruction", "Setup", "Linearsolve", "PROMconstruction",
-        "Eigenvaluesolve", "Postprocessing") if k in dur)
+        "Meshpreprocessing", "Operatorconstruction", "Setup", "Linearsolve",
+        "PROMconstruction", "Eigenvaluesolve", "Estimatorsolve",
+        "Adaptation", "Postprocessing") if k in dur)
 
 
 def phase_driven(workdir: str):
@@ -748,6 +799,386 @@ def phase_adaptive_parity(workdir: str):
           flush=True)
 
 
+def _apply_report(op, x) -> dict:
+    """Median time of one element-mode apply y = A x on the card (the
+    PAOperator's gather, batched product and sorted scatter-add), its
+    device time alone, and its bound: A_e, u and y moved once (bytes) over
+    the memory rate, or 2 nd^2 per element over the float64 tensor-core
+    rate, whichever is larger."""
+    import torch
+
+    x = torch.as_tensor(x, device=op.device)
+    nbytes = 8 * (sum(t["A"].numel() for t in op._tables) + 2 * op.num_dofs)
+    flops = 2.0 * sum(t["A"].numel() for t in op._tables)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["float64"]
+    return {"ms": _time_ms(lambda: op(x)), "device_ms": _device_ms(
+        lambda: op(x)), "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "nd": int(op._tables[0]["A"].shape[1]),
+        "elements": sum(int(t["A"].shape[0]) for t in op._tables)}
+
+
+def _cg_idle_share(eliminated, raw, b, iters: int = 100):
+    """(device busy seconds, wall seconds, idle share) of `iters` Jacobi-CG
+    iterations (tol 0): the wall time of a plain run (host clock, ending in
+    a synchronize), the busy time the sum of the device kernels' self time
+    in a second run under torch.profiler (whose host overhead would inflate
+    its own wall time); None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from palace_torch.linalg.iterative import cg
+    from palace_torch.linalg.smoothers import jacobi
+
+    M = jacobi(raw.diagonal(), eliminated.ess_mask)
+    cg(eliminated, b, M=M, tol=0.0, max_its=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg(eliminated, b, M=M, tol=0.0, max_its=iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cg(eliminated, b, M=M, tol=0.0, max_its=iters)
+        torch.cuda.synchronize()
+    busy = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is not None and \
+                "CUDA" not in str(e.device_type):
+            continue
+        busy += getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0)) * 1e-6
+    if busy <= 0:
+        return None
+    return busy, wall, max(0.0, 1.0 - busy / wall)
+
+
+def _eliminated_csr(op, mask):
+    """Host scipy CSR of the eliminated operator (rows and columns of the
+    essential dofs replaced by the identity), built from the element tables
+    kept on the host."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    K = op.assemble_csr()
+    free = sp.diags((~np.asarray(mask, bool)).astype(float))
+    return (free @ K @ free + sp.diags(np.asarray(mask, bool).astype(float))
+            ).tocsr(), K
+
+
+def _static_run(workdir: str, problem: str, tol: float, max_its: int):
+    """One full-width rings run of `problem` on the GPU: returns the result,
+    its wall time, peak memory and the kernels' launches during the run."""
+    import torch
+
+    import palace_torch
+    from palace_torch.cases import write_rings_case
+
+    cfg = write_rings_case(os.path.join(workdir, problem), RINGS_H,
+                           RINGS_ORDER, problem=problem, tol=tol,
+                           max_its=max_its, device="GPU", verbose=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = palace_torch.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == (0, 0), f"{problem}: structured kernels launched "
+                              f"{launches} times on an element-mode path")
+    check(res["num_dofs"] == RINGS_DOFS[problem],
+          f"{problem}: unexpected dof count {res['num_dofs']}")
+    prov = res["provenance"]
+    check(prov.get("solver_path") == "device-cg", f"{problem}: {prov}")
+    relres = prov.get("cg_relres", [])
+    check(len(relres) == 2 and max(relres) <= tol,
+          f"{problem}: CG relres {relres} (iterations "
+          f"{prov.get('cg_iterations')}) above Tol {tol:.0e}")
+    return res, wall, peak, sum(launches)
+
+
+def _static_report(res, b, x, K_host, Keli_host):
+    """Host residual of one solve, the apply's timings and bound, and the
+    CG idle share (device `b` and the solution `x` of the first source)."""
+    import numpy as np
+    import torch
+
+    op = res["operator"]
+    bh = b.cpu().numpy()
+    resid = float(np.linalg.norm(bh - Keli_host @ x) / np.linalg.norm(bh))
+    rep = _apply_report(op.K, x)
+    idle = _cg_idle_share(op.Keli, op.K, b)
+    torch.cuda.synchronize()
+    return resid, rep, idle
+
+
+def _static_line(tag, res, wall, peak, resid, rep, idle, t_phase, extra,
+                 rhs_applies):
+    """The phase's line; a solve applies the operator once a CG iteration,
+    plus `rhs_applies` times for its right-hand side (the diagonal sums the
+    element diagonals: no product)."""
+    prov = res["provenance"]
+    its = prov["cg_iterations"]
+    idle_s = ("not measured" if idle is None else
+              f"{100 * idle[2]:.1f}% (busy {idle[0]:.3f} s of "
+              f"{idle[1]:.3f} s, 100 iterations)")
+    print(f"[{tag}] {res['num_dofs']} dofs; CG iterations {its}, relres "
+          f"{', '.join(f'{r:.3e}' for r in prov['cg_relres'])}, host "
+          f"residual {resid:.3e}; {extra}; element apply (E={rep['elements']},"
+          f" nd={rep['nd']}, {rep['bytes'] / 1e9:.3f} GB) median "
+          f"{rep['ms']:.4f} ms, device {rep['device_ms']:.4f} ms, bound "
+          f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}), "
+          f"{[i + rhs_applies for i in its]} applies a solve; CG "
+          f"device idle {idle_s}; {_durations(res['post_dir'])}, run "
+          f"{wall:.2f} s; peak device memory {peak / 2 ** 30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_magnetostatic(workdir: str):
+    """The rings magnetostatic case at full width on the GPU."""
+    import numpy as np
+
+    from palace_torch.testing import rings
+
+    t_phase = time.perf_counter()
+    res, wall, peak, launches = _static_run(workdir, "Magnetostatic", 1e-8,
+                                            RINGS_MAG_MAX_ITS)
+    cc = res["operator"]
+    Keli_host, K = _eliminated_csr(cc.K, cc.ess_mask)
+    A = res["A"]
+    # M before the driver's symmetrization, from the host operator.
+    Mraw = np.array([[A[j] @ (K @ A[i]) for j in (1, 2)] for i in (1, 2)])
+    asym = float(np.abs(Mraw - Mraw.T).max() / np.abs(Mraw).max())
+    check(asym <= 1e-8, f"M not symmetric: {asym:.3e}")
+    b = cc.excitation(1)
+    resid, rep, idle = _static_report(res, b, A[1], K, Keli_host)
+    check(resid <= 1e-7, f"magnetostatic host residual {resid:.3e} > 1e-7")
+    um = 1e-6
+    ana = np.array([rings.square_ribbon_self(6 * um, um, model="pec"),
+                    rings.square_ribbon_self(24 * um, um, model="pec"),
+                    rings.square_ribbon_mutual(6 * um, 24 * um, um)])
+    M = res["M"]
+    got = np.array([M[0, 0], M[1, 1], 0.5 * (M[0, 1] + M[1, 0])])
+    err = np.abs(got - ana) / np.abs(ana)
+    check(err.max() <= 0.10, f"M {got / 1e-12} pH against the analytic "
+                             f"{ana / 1e-12} pH: {err}")
+    # The same mesh's Order 1 element apply (nd = 12), timed beside it.
+    from palace_torch.fem.nd import NDSpace
+    from palace_torch.fem.nd_operators import nd_operator
+
+    sp1 = NDSpace(cc.space.mesh, 1)
+    K1 = nd_operator(sp1, curl_coef=cc.materials.inv_permeability,
+                     device=cc.K.device)
+    rep1 = _apply_report(K1, np.ones(sp1.num_dofs))
+    del K1
+    for name in ("terminal-M.csv", "terminal-Minv.csv", "terminal-Mm.csv",
+                 "terminal-I.csv", "domain-E.csv", "error-indicators.csv"):
+        _table(os.path.join(res["post_dir"], name))
+    _static_line("10 magnetostatic", res, wall, peak, resid, rep, idle,
+                 t_phase, f"M_aa/M_bb/M_ab {got[0] / 1e-12:.6f}/"
+                 f"{got[1] / 1e-12:.6f}/{got[2] / 1e-12:.6f} pH (analytic "
+                 f"{err[0] * 100:.2f}/{err[1] * 100:.2f}/{err[2] * 100:.2f}% "
+                 f"off), asymmetry {asym:.3e}; Order 1 apply on the same "
+                 f"mesh (nd={rep1['nd']}, {rep1['bytes'] / 1e9:.3f} GB) "
+                 f"median {rep1['ms']:.4f} ms, device "
+                 f"{rep1['device_ms']:.4f} ms, bound {rep1['bound_ms']:.4f} "
+                 f"ms ({rep1['bound_by']})", rhs_applies=0)
+    return launches
+
+
+def _sheet_case(directory: str, device: str) -> str:
+    """The current sheet of tests/test_drivers_e2e.py:49."""
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_tet
+
+    os.makedirs(directory, exist_ok=True)
+    gmsh_write.write(box_tet(2, 2, 2, sheet_j=1),
+                     os.path.join(directory, "box.msh"))
+    cfg = {"Problem": {"Type": "Magnetostatic", "Verbose": 0,
+                       "Output": "out"},
+           "Model": {"Mesh": "box.msh", "L0": 1.0e-3},
+           "Domains": {"Materials": [{"Attributes": [1],
+                                      "Permeability": 1.0}]},
+           "Boundaries": {"PEC": {"Attributes": [1, 2, 3, 4]},
+                          "SurfaceCurrent": [{"Index": 1, "Attributes": [7],
+                                              "Direction": [1.0, 0.0, 0.0]}]},
+           "Solver": {"Order": 1, "Device": device,
+                      "Magnetostatic": {"Save": 0},
+                      "Linear": {"Tol": 1e-12, "MaxIts": 2000}}}
+    path = os.path.join(directory, "case.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_magnetostatic_reference(workdir: str):
+    """The rings case at h = 1.0, Order 1 against palace_tpu's solved M
+    (RINGS_VALIDATION.json), and the current sheet, GPU against CPU."""
+    import numpy as np
+
+    import palace_torch
+    from palace_torch.cases import write_rings_case
+
+    t0 = time.perf_counter()
+    with open("RINGS_VALIDATION.json") as f:
+        solved = json.load(f)["solved"]
+    cfg = write_rings_case(os.path.join(workdir, "rings_h1"), 1.0, 1,
+                           tol=1e-8, device="GPU", verbose=0)
+    res = palace_torch.run(cfg)
+    M = res["M"] / 1e-12
+    got = {"M_aa_pH": M[0, 0], "M_bb_pH": M[1, 1],
+           "M_ab_pH": 0.5 * (M[0, 1] + M[1, 0])}
+    rel = {k: abs(got[k] - solved[k]) / abs(solved[k]) for k in got}
+    check(max(rel.values()) <= 1e-6, f"rings h=1 M {got} pH against "
+                                     f"RINGS_VALIDATION.json {solved}")
+    tabs = {}
+    for device in ("GPU", "CPU"):
+        r = palace_torch.run(_sheet_case(os.path.join(workdir,
+                                                      f"sheet_{device}"),
+                                         device))
+        tabs[device] = _table(os.path.join(r["post_dir"], "terminal-M.csv"))
+    sheet = _rel_diff(tabs["GPU"], tabs["CPU"])
+    check(sheet <= 1e-10, f"current sheet terminal-M.csv GPU vs CPU {sheet}")
+    L = tabs["GPU"][0, 1]
+    check(abs(L - 1.25663706127e-6 * 0.25e-3) <= 1e-8 * L,
+          f"current sheet L {L} H")
+    print(f"[11 magnetostatic reference] rings h=1 p=1 on the GPU: CG "
+          f"{res['iterations']} iterations, M "
+          f"{', '.join(f'{k} {v:.12f}' for k, v in got.items())} pH, max "
+          f"relative difference from RINGS_VALIDATION.json "
+          f"{max(rel.values()):.3e}; current sheet terminal-M.csv GPU vs CPU "
+          f"{sheet:.3e}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_electrostatic(workdir: str):
+    """The rings electrostatic case at full width on the GPU."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    res, wall, peak, launches = _static_run(workdir, "Electrostatic", 1e-10,
+                                            3000)
+    lap = res["operator"]
+    Keli_host, K = _eliminated_csr(lap.K, lap.ess_mask)
+    V = res["V"]
+    Craw = np.array([[V[j] @ (K @ V[i]) for j in (1, 2)] for i in (1, 2)])
+    asym = float(np.abs(Craw - Craw.T).max() / np.abs(Craw).max())
+    check(asym <= 1e-8, f"C not symmetric: {asym:.3e}")
+    C = res["C"]
+    check(np.linalg.eigvalsh(C).min() > 0, f"C not positive definite: {C}")
+    check(C[0, 1] < 0, f"C12 = {C[0, 1]} is not negative")
+    ref = np.array(RINGS_ES_TPU_C)
+    cerr = float((np.abs(C - ref) / np.abs(ref)).max())
+    check(cerr <= 1e-8, f"C {C.tolist()} against palace_tpu's {ref.tolist()}"
+                        f": {cerr:.3e}")
+    norm = float(_table(os.path.join(res["post_dir"],
+                                     "error-indicators.csv"))[0, 0])
+    nerr = abs(norm - RINGS_ES_TPU_NORM) / RINGS_ES_TPU_NORM
+    check(nerr <= 1e-6, f"error-indicator Norm {norm} against palace_tpu's "
+                        f"{RINGS_ES_TPU_NORM}")
+    _, b = lap.excitation(1)
+    resid, rep, idle = _static_report(res, b, V[1], K, Keli_host)
+    check(resid <= 1e-8, f"electrostatic host residual {resid:.3e} > 1e-8")
+    for name in ("terminal-C.csv", "terminal-Cinv.csv", "terminal-Cm.csv",
+                 "terminal-V.csv", "domain-E.csv"):
+        _table(os.path.join(res["post_dir"], name))
+    _static_line("12 electrostatic", res, wall, peak, resid, rep, idle,
+                 t_phase, f"C11/C12/C22 {C[0, 0]:.12e}/{C[0, 1]:.12e}/"
+                 f"{C[1, 1]:.12e} F (palace_tpu's within {cerr:.3e}), "
+                 f"asymmetry {asym:.3e}, error-indicator Norm {norm:.12e} "
+                 f"(within {nerr:.3e})", rhs_applies=1)
+    return launches
+
+
+def _plate_case(directory: str, device: str, terminal: int = 6,
+                tets: bool = False, amr: bool = False) -> str:
+    """The parallel plate of tests/test_drivers_e2e.py:25 (hexes, ground
+    z = 0, terminal z = top) or of tests/test_amr.py:42 (tets, terminal
+    z = 0 with `terminal` 5, ground z = top, AMR MaxIts 2); `terminal` 1
+    puts terminal and ground on adjacent faces."""
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_hex, box_tet
+
+    os.makedirs(directory, exist_ok=True)
+    mesh = (box_tet(3, 3, 3, lx=2.0, ly=3.0, lz=0.5) if tets else
+            box_hex(2, 2, 2, lx=2.0, ly=3.0, lz=0.5))
+    gmsh_write.write(mesh, os.path.join(directory, "box.msh"))
+    model = {"Mesh": "box.msh", "L0": 1.0e-3}
+    if amr:
+        model["Refinement"] = {"Tol": 1e-12, "MaxIts": 2,
+                               "UpdateFraction": 0.5, "SaveAdaptMesh": True}
+    ground = 6 if tets else 5  # the z faces: 5 at z = 0, 6 at the top
+    cfg = {"Problem": {"Type": "Electrostatic", "Verbose": 0,
+                       "Output": "out"},
+           "Model": model,
+           "Domains": {"Materials": [{"Attributes": [1],
+                                      "Permittivity": 4.0}]},
+           "Boundaries": {"Ground": {"Attributes": [ground]},
+                          "Terminal": [{"Index": 1,
+                                        "Attributes": [terminal]}]},
+           "Solver": {"Order": 2, "Device": device,
+                      "Electrostatic": {"Save": 0},
+                      "Linear": {"Tol": 1e-12, "MaxIts": 2000}}}
+    path = os.path.join(directory, "case.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_electrostatic_parity(workdir: str):
+    import palace_torch
+    from palace_torch.cases import write_rings_case
+    from palace_torch.mesh.mesh import load_mesh
+
+    t0 = time.perf_counter()
+    tabs = {}
+    for device in ("GPU", "CPU"):
+        cfg = write_rings_case(os.path.join(workdir, f"es_h1_{device}"), 1.0,
+                               1, problem="Electrostatic", tol=1e-10,
+                               max_its=3000, device=device, verbose=0)
+        res = palace_torch.run(cfg)
+        tabs[device] = _table(os.path.join(res["post_dir"], "terminal-C.csv"))
+    rings_rel = _rel_diff(tabs["GPU"], tabs["CPU"])
+    check(rings_rel <= 1e-9, f"rings h=1 terminal-C.csv GPU vs CPU "
+                             f"{rings_rel:.3e}")
+    res = palace_torch.run(_plate_case(os.path.join(workdir, "plate"), "GPU"))
+    C_expect = 4.0 * EPS0 * (2e-3 * 3e-3) / 0.5e-3
+    plate = abs(res["C"][0, 0] - C_expect) / C_expect
+    check(plate <= 1e-9, f"parallel plate C {res['C'][0, 0]} against "
+                         f"{C_expect}")
+    loops = {}
+    for kind, terminal in (("plate", 5), ("edge", 1)):
+        out = {}
+        for device in ("GPU", "CPU"):
+            d = os.path.join(workdir, f"amr_{kind}_{device}")
+            r = palace_torch.run(_plate_case(d, device, terminal, tets=True,
+                                             amr=True))
+            check(r["amr_iterations"] == 2, f"AMR {kind} {device}: "
+                                            f"{r['amr_iterations']} passes")
+            counts = [load_mesh(os.path.join(r["post_dir"],
+                                             f"amr-mesh-{i}.msh")).num_elements
+                      for i in (1, 2)]
+            out[device] = (counts, _table(os.path.join(r["post_dir"],
+                                                       "terminal-C.csv")))
+        rel = _rel_diff(out["GPU"][1], out["CPU"][1])
+        check(rel <= 1e-8, f"AMR {kind} terminal-C.csv GPU vs CPU {rel:.3e}")
+        # The plate's field is exact on every mesh: its indicators are
+        # round-off, so which elements they mark is not reproducible.
+        if kind == "edge":
+            check(out["GPU"][0] == out["CPU"][0],
+                  f"AMR element counts GPU {out['GPU'][0]} CPU "
+                  f"{out['CPU'][0]}")
+        loops[kind] = (out["GPU"][0], out["CPU"][0], rel)
+    print(f"[13 electrostatic parity] rings h=1 p=1 terminal-C.csv GPU vs "
+          f"CPU {rings_rel:.3e}; parallel plate C {res['C'][0, 0]:.12e} F "
+          f"(eps A/d within {plate:.3e}); tet AMR plate: elements GPU "
+          f"{loops['plate'][0]} CPU {loops['plate'][1]}, terminal-C.csv "
+          f"{loops['plate'][2]:.3e}; tet AMR singular edge: elements "
+          f"{loops['edge'][0]} on both, terminal-C.csv {loops['edge'][2]:.3e};"
+          f" phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -767,6 +1198,12 @@ def main() -> int:
             by_path["structured_apply_flat"]["adaptive"] = phase_adaptive(
                 workdir)
             phase_adaptive_parity(workdir)
+            mag = phase_magnetostatic(workdir)
+            phase_magnetostatic_reference(workdir)
+            es = phase_electrostatic(workdir)
+            phase_electrostatic_parity(workdir)
+            for name in by_path:
+                by_path[name].update(magnetostatic=mag, electrostatic=es)
     except SmokeFailure as e:
         print(f"FAILED: {e}", flush=True)
         return 1

@@ -2,8 +2,10 @@
 
 Runs the driven frequency sweep (config -> mesh -> Nedelec space ->
 term-structured system -> blocked FGMRES + p-multigrid -> port, energy and
-error-indicator tables) and the eigenmode solve (block Lanczos over the same
-solver, or host ARPACK -> eig, energy and error-indicator tables) on one
+error-indicator tables), the eigenmode solve (block Lanczos over the same
+solver, or host ARPACK -> eig, energy and error-indicator tables) and the
+electrostatic and magnetostatic solves (Jacobi-CG over element-mode
+operators -> capacitance or inductance matrices, inside the AMR loop) on one
 NVIDIA GPU or on the CPU, with the same JSON configuration as palace_tpu.  On
 uniform PEC box hex meshes the fine-level operator runs through hand-written
 CUDA kernels (csrc/structured_apply.cu for the driven sweep,

@@ -10,7 +10,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="palace_torch",
         description="PyTorch/CUDA finite element solver for computational "
-        "electromagnetics (driven frequency sweep, eigenmode)",
+        "electromagnetics (driven frequency sweep, eigenmode, "
+        "electrostatic, magnetostatic)",
     )
     ap.add_argument("config", help="JSON configuration file")
     ap.add_argument("--dry-run", "-dry-run", action="store_true",

@@ -15,6 +15,13 @@ that crosses the first resonance (Q about 100 from the loss tangent).
 `write_eigen_case` writes the eigenmode check: the cavity made lossless (tan
 delta 0, no ports, so the linear branch runs), the 4 modes nearest 5.0 GHz
 at Tol 1e-8, with the iterative (GMG) inner solver by default.
+
+`write_rings_case` writes the static checks on `testing/rings.py`'s mesh:
+two concentric coplanar square ribbon loops (half-sides 6 and 24 um, width
+1 um) as interior sheets of a graded 280 um hex box.  "Magnetostatic" is
+`rings_config` (unit surface currents through each ring's gap strip, the
+rings and the box PEC); "Electrostatic" makes the rings terminals 1 and 2
+(sheet and strip) and the box faces ground.
 """
 
 from __future__ import annotations
@@ -92,3 +99,40 @@ def write_eigen_case(directory: str, n: int, order: int, *, tol: float = 1e-8,
         {"Order": order, "Device": device,
          "Eigenmode": {"N": modes, "Target": target, "Tol": tol},
          "Linear": {"Type": linear}})
+
+
+def write_rings_case(directory: str, h: float, order: int, *,
+                     problem: str = "Magnetostatic", tol: float = 1e-8,
+                     max_its: int = 500, device: str = "GPU",
+                     verbose: int = 1) -> str:
+    """Write rings.msh (cell size `h` um at the rings) and case.json into
+    `directory`; returns the config path."""
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.testing import rings
+
+    os.makedirs(directory, exist_ok=True)
+    gmsh_write.write(rings.rings_mesh(6.0, 24.0, 1.0, 140.0, h),
+                     os.path.join(directory, "rings.msh"))
+    cfg = rings.rings_config("rings.msh", order=order, tol=tol)
+    cfg["Problem"]["Verbose"] = verbose
+    cfg["Solver"]["Linear"]["MaxIts"] = max_its
+    cfg["Solver"]["Device"] = device
+    if problem == "Electrostatic":
+        cfg["Problem"]["Type"] = "Electrostatic"
+        cfg["Domains"] = {"Materials": [{"Attributes": [1],
+                                         "Permittivity": 1.0}]}
+        cfg["Boundaries"] = {
+            "Ground": {"Attributes": list(rings.ATTR_FARFIELD)},
+            "Terminal": [
+                {"Index": 1, "Attributes": [rings.ATTR_RING_A,
+                                            rings.ATTR_SRC_A]},
+                {"Index": 2, "Attributes": [rings.ATTR_RING_B,
+                                            rings.ATTR_SRC_B]}]}
+        cfg["Solver"]["Electrostatic"] = {"Save": 0}
+        del cfg["Solver"]["Magnetostatic"]
+    elif problem != "Magnetostatic":
+        raise ValueError(f"rings case: unknown problem {problem!r}")
+    path = os.path.join(directory, "case.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path

@@ -1,11 +1,10 @@
-"""Problem drivers of the port (driven sweep and eigenmode so far)."""
+"""Problem drivers of the port (driven sweep, eigenmode, electrostatic and
+magnetostatic so far)."""
 
 from __future__ import annotations
 
 #: ROADMAP.md port-queue item of each problem type not ported yet.
-_QUEUE = {"Electrostatic": "electrostatic/magnetostatic/AMR",
-          "Magnetostatic": "electrostatic/magnetostatic/AMR",
-          "Transient": "transient/boundary-mode",
+_QUEUE = {"Transient": "transient/boundary-mode",
           "BoundaryMode": "transient/boundary-mode"}
 
 
@@ -18,6 +17,12 @@ def get_driver(problem_type):
         return solve
     if problem_type is ProblemType.EIGENMODE:
         from palace_torch.drivers.eigenmode import solve
+        return solve
+    if problem_type is ProblemType.ELECTROSTATIC:
+        from palace_torch.drivers.electrostatic import solve
+        return solve
+    if problem_type is ProblemType.MAGNETOSTATIC:
+        from palace_torch.drivers.magnetostatic import solve
         return solve
     unported(f"The {problem_type.value} driver",
              _QUEUE.get(problem_type.value, "Modules to port"))

@@ -167,7 +167,7 @@ def solve(iodata: IoData, output_dir: str | None = None,
     t0 = time.time()
     if iodata.model.refinement.max_it > 0:
         unported("Driven AMR (Model/Refinement/MaxIts)",
-                  "electrostatic/magnetostatic/AMR")
+                  "driven and eigenmode AMR")
     with timers.block("Mesh preprocessing"):
         mesh = prepare_mesh(iodata)
     post_dir = make_output_dir(iodata, output_dir)

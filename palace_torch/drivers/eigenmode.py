@@ -42,7 +42,7 @@ def _check_unported(iodata: IoData):
     b = iodata.boundaries
     if iodata.model.refinement.max_it > 0:
         unported("Eigenmode AMR (Model/Refinement/MaxIts)",
-                 "electrostatic/magnetostatic/AMR")
+                 "driven and eigenmode AMR")
     if b.wave_ports or (b.absorbing is not None and b.absorbing.attributes
                         and b.absorbing.order > 1):
         unported("The nonlinear eigenproblem (wave ports, second-order "

@@ -1,13 +1,16 @@
-"""Quadrature-order policy and per-element coefficient tables (counterpart of
-the jax-free parts of palace_tpu/fem/operators.py: `QuadraturePolicy`,
-`default_qorder`, `_per_elem_tensor`)."""
+"""Quadrature-order policy, per-element coefficient tables and the H1
+bilinear forms (counterpart of palace_tpu/fem/operators.py:
+`QuadraturePolicy`, `default_qorder`, `h1_operator`, `_per_elem_tensor`,
+`_per_elem_scalar`; the operator's element matrices are assembled on the
+host and held on `device`)."""
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 
 class QuadraturePolicy:
@@ -76,4 +79,61 @@ def _per_elem_tensor(table: Dict[int, np.ndarray], attrs: np.ndarray, dim: int
         if t.ndim == 0:
             t = np.eye(dim) * t
         lut[int(a)] = t[:dim, :dim]
+    return lut[attrs]
+
+
+def h1_operator(space, *, diffusion_coef: Optional[Dict[int, np.ndarray]] = None,
+                mass_coef: Optional[Dict[int, np.ndarray]] = None,
+                device: torch.device = torch.device("cpu")):
+    """(alpha grad u, grad v) + (beta u, v) on an H1 space, as dense float64
+    per-element matrices on `device`, at the default quadrature order.
+    Coefficients are per-attribute 3x3 tensors (mass uses the scalar trace/3
+    unless a scalar is given)."""
+    from palace_torch.mesh import geometry
+    from palace_torch.ops.partial import BucketTables, PAOperator
+
+    mesh = space.mesh
+    buckets: List[BucketTables] = []
+    for b, ed in zip(mesh.buckets, space.elem_dofs):
+        q = default_qorder(space.order, b.geo_order, b.geom)
+        gf = geometry.compute(mesh.nodes, b, q)
+        basis = space.basis(b.geom)
+        B = basis.eval(gf.qpts)
+        G = basis.eval_grad(gf.qpts)
+        qd_diffp = qd_mass = None
+        if diffusion_coef is not None:
+            sdim = mesh.nodes.shape[1]
+            C = _per_elem_tensor(diffusion_coef, b.attr, sdim)
+            # Planar W[r, u][e, q] = wdetJ * (Jinv C Jinv^T)[r, u].
+            Ji = gf.Jinvp  # (r, s, E, nq)
+            r = Ji.shape[0]
+            Wp = np.zeros((r, r) + gf.wdetJ.shape)
+            for rr in range(r):
+                for uu in range(r):
+                    for s_ in range(sdim):
+                        for t_ in range(sdim):
+                            cst = C[:, s_, t_]
+                            if not np.any(cst):
+                                continue
+                            Wp[rr, uu] += Ji[rr, s_] * cst[:, None] * Ji[uu, t_]
+            Wp *= gf.wdetJ[None, None]
+            qd_diffp = Wp
+        if mass_coef is not None:
+            c = _per_elem_scalar(mass_coef, b.attr)
+            qd_mass = gf.wdetJ * c[:, None]
+        buckets.append(BucketTables(gidx=ed, B=B, G=G, qd_diffp=qd_diffp,
+                                    qd_mass=qd_mass))
+    op = PAOperator(space.num_dofs, buckets, device=device)
+    op.space = space
+    return op
+
+
+def _per_elem_scalar(table: Dict[int, np.ndarray], attrs: np.ndarray
+                     ) -> np.ndarray:
+    uniq = np.unique(attrs)
+    amax = int(uniq.max())
+    lut = np.zeros(amax + 1)
+    for a in uniq:
+        t = np.asarray(table[int(a)], float)
+        lut[int(a)] = float(t) if t.ndim == 0 else float(np.trace(t) / t.shape[0])
     return lut[attrs]

@@ -1,11 +1,13 @@
 """Matrix-free operator core: batched element matrices + gather/scatter
-(counterpart of palace_tpu/ops/partial.py, element mode).
+(counterpart of palace_tpu/ops/partial.py, element mode, with
+`_assemble_element_matrices`, `EliminatedOperator` and `make_ess_mask`).
 
 Each apply is t-dofs -> gather -> batched per-element matmul -> sorted
 segment-sum scatter (index_add_ over the sorted permutation) -> t-dofs, with
 DofTransformation signs folded into per-(element, dof) sign tables.  Host
-tables stay numpy (`BucketTables`); `PAOperator` copies them once to its
-device.
+tables stay numpy (`BucketTables`); `PAOperator` assembles the dense element
+matrices of quadrature-data buckets on the host and copies every table once
+to its device.
 """
 
 from __future__ import annotations
@@ -79,6 +81,11 @@ class BucketTables:
     gidx: np.ndarray  # (E, nd) gather indices
     A: Optional[np.ndarray] = None  # (E, nd, nd) element matrices
     signs: Optional[np.ndarray] = None  # (E, nd)
+    # Quadrature data, folded into A by `_assemble_element_matrices`:
+    B: Optional[np.ndarray] = None  # (nq, nd) basis values
+    G: Optional[np.ndarray] = None  # (nq, nd, d) reference gradients
+    qd_mass: Optional[np.ndarray] = None  # (E, nq)
+    qd_diffp: Optional[np.ndarray] = None  # (d, d, E, nq) planar layout
 
 
 def signed_tables(buckets: Sequence[BucketTables]
@@ -127,7 +134,9 @@ def _apply(tables: List[dict], perm: torch.Tensor, seg_ids: torch.Tensor,
 
 class PAOperator:
     """Symmetric bilinear-form operator over the buckets of one space, with
-    its element tables on `device` in `dtype`."""
+    its element tables on `device` in `dtype`.  Buckets given as quadrature
+    data get their dense element matrices here (element mode; palace_tpu's
+    qdata mode has no driver caller and is not ported)."""
 
     def __init__(self, num_dofs: int, buckets: List[BucketTables],
                  device: torch.device = torch.device("cpu"),
@@ -138,8 +147,8 @@ class PAOperator:
         self.dtype = dtype
         for b in buckets:
             if b.A is None:
-                raise NotImplementedError(
-                    "PAOperator: only element mode (dense A) is ported")
+                b.A = _assemble_element_matrices(b)
+            b.B = b.G = b.qd_mass = b.qd_diffp = None
         sc = Scatter.build([b.gidx for b in buckets], num_dofs)
         self._perm = torch.as_tensor(sc.perm, device=self.device)
         self._seg = torch.as_tensor(sc.seg_ids, device=self.device)
@@ -202,3 +211,57 @@ class PAOperator:
     def assemble_csr(self) -> sp.csr_matrix:
         """Global sparse matrix (scipy CSR, host; for direct solves)."""
         return tables_csr(signed_tables(self.buckets), self.num_dofs)
+
+
+def _assemble_element_matrices(b: BucketTables) -> np.ndarray:
+    """A_e = sum_q G_q^T W_q G_q + B_q^T qm_q B_q on the host, one dgemm per
+    term against a static assembly tensor:
+      A[e, n*m] = sum_{d,k,q} W[e, d*k*q] * S[d*k*q, n*m],
+      S[d,k,q,n,m] = G[q,n,d] G[q,m,k]."""
+    E, nd = np.asarray(b.gidx).shape
+    A = np.zeros((E, nd * nd))
+    if b.qd_diffp is not None:
+        G = np.asarray(b.G)  # (nq, nd, d)
+        nq, _, d = G.shape
+        # Rows ordered (dd, k, q) to match the planar qdata layout.
+        S = (
+            G.transpose(2, 0, 1)[:, None, :, :, None]
+            * G.transpose(2, 0, 1)[None, :, :, None, :]
+        ).reshape(d * d * nq, nd * nd)
+        W = np.ascontiguousarray(
+            np.moveaxis(np.asarray(b.qd_diffp).reshape(d * d, E, nq), 1, 0)
+        ).reshape(E, d * d * nq)
+        A += W @ S
+    if b.qd_mass is not None:
+        B = np.asarray(b.B)  # (nq, nd)
+        nq = B.shape[0]
+        SB = (B[:, :, None] * B[:, None, :]).reshape(nq, nd * nd)
+        A += np.asarray(b.qd_mass) @ SB
+    return A.reshape(E, nd, nd)
+
+
+class EliminatedOperator:
+    """Essential-BC elimination wrapper (reference: palace/linalg/rap.hpp:18-39,
+    DiagonalPolicy::DIAG_ONE): y = A u on free dofs, y[ess] = u[ess].  The
+    mask lives on the operator's device."""
+
+    def __init__(self, op: PAOperator, ess_mask: np.ndarray):
+        self.op = op
+        self.ess_mask = torch.as_tensor(np.asarray(ess_mask, bool),
+                                        device=op.device)
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        y = self.op(u * (~self.ess_mask))
+        return torch.where(self.ess_mask, u, y)
+
+    def eliminate_rhs(self, b: torch.Tensor, x_bc: torch.Tensor
+                      ) -> torch.Tensor:
+        """b <- b - A x_bc on free dofs; b[ess] <- x_bc[ess]."""
+        ax = self.op(x_bc * self.ess_mask)
+        return torch.where(self.ess_mask, x_bc, b - ax)
+
+
+def make_ess_mask(num_dofs: int, ess_dofs: np.ndarray) -> np.ndarray:
+    m = np.zeros(num_dofs, bool)
+    m[np.asarray(ess_dofs, np.int64)] = True
+    return m

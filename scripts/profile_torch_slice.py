@@ -37,10 +37,24 @@ reports:
      time and top kernels.
 Writes chiprun_out/profile_adaptive.txt.
 
+--problem static: runs the rings magnetostatic and electrostatic cases
+(cases.py:write_rings_case, h = 0.5 um, Order 2, as in chip_smoke.py; --h
+and --order change them) through palace_torch.run and reports, for each:
+  1. the whole run with synchronizing timers around its components: mesh
+     preparation, the finite-element spaces, the host element matrices,
+     the operators' copies to the device, the excitations, the CG solves
+     (element applies, preconditioner and vector work), the estimator's
+     discrete gradient, flux setup, mass solves and host integrals, and
+     the tables;
+  2. one more CG solve under torch.profiler: device busy time and top
+     kernels.
+Writes chiprun_out/profile_static.txt.
+
 Each report is printed too.  Usage (repository root):
-    python scripts/profile_torch_slice.py [--problem eigen|adaptive] [--n N]
-        [--order P]
-(--device cpu rehearses the script at a small --n without a GPU.)
+    python scripts/profile_torch_slice.py [--problem eigen|adaptive|static]
+        [--n N] [--order P] [--h H]
+(--device cpu rehearses the script at a small --n, or a large --h, without
+a GPU.)
 """
 
 from __future__ import annotations
@@ -457,18 +471,90 @@ def _profile_adaptive(args, dev, cuda, sync, lines, work):
               lines, "HDM solve at 6.2 GHz")
 
 
+def _profile_static(args, dev, cuda, sync, lines, work):
+    import palace_torch
+    from palace_torch.cases import write_rings_case
+    from palace_torch.config import IoData
+    from palace_torch.drivers import common, electrostatic, magnetostatic
+    from palace_torch.fem import estimators, h1, nd, nd_operators
+    from palace_torch.linalg import iterative
+    from palace_torch.models import curlcurl, laplace
+    from palace_torch.ops import partial
+
+    PA = partial.PAOperator
+    for problem, tol, max_its in (("Magnetostatic", 1e-8, 5000),
+                                  ("Electrostatic", 1e-10, 3000)):
+        lines.append(f"case: rings {problem} h={args.h} order={args.order}")
+        cfg = write_rings_case(os.path.join(work, problem), args.h,
+                               args.order, problem=problem, tol=tol,
+                               max_its=max_its,
+                               device="GPU" if cuda else "CPU", verbose=0)
+        res, timed, ct = _patched_run([
+            (common, "load_mesh", "mesh: load"),
+            (electrostatic, "prepare_mesh", "mesh: crack, units"),
+            (magnetostatic, "prepare_mesh", "mesh: crack, units"),
+            (h1.H1Space, "__init__", "setup: H1 space"),
+            (nd.NDSpace, "__init__", "setup: ND space"),
+            (partial, "_assemble_element_matrices",
+             "setup: H1 element matrices (host)"),
+            (nd_operators, "_assemble", "setup: ND element matrices (host)"),
+            (nd_operators, "_planar_sandwich", "setup: ND qdata (host)"),
+            (PA, "__init__", "setup: operator tables to the device"),
+            (curlcurl.CurlCurlOperator, "excitation",
+             "setup: excitation (host traces)"),
+            (laplace.LaplaceOperator, "excitation",
+             "setup: excitation (eliminated rhs)"),
+            (iterative, "cg", "solve: CG vector work + host reads"),
+            (estimators, "cg", "estimator: mass CG"),
+            (PA, "__call__", "element apply (solves, estimator, energies)"),
+            (PA, "diagonal", "element diagonal"),
+            (nd_operators, "nd_h1_gradient", "estimator: discrete gradient"),
+            (estimators, "_rt_flux_setup", "estimator: RT flux setup"),
+            (estimators, "grad_flux_indicators",
+             "estimator: grad-flux host integrals"),
+            (estimators, "curl_flux_indicators",
+             "estimator: curl-flux host integrals"),
+            (PA, "element_energy", "postprocessing: element energies"),
+        ], sync, lambda: palace_torch.run(cfg))
+        prov = res["provenance"]
+        lines.append(f"{res['num_dofs']} dofs; CG iterations "
+                     f"{prov['cg_iterations']}, relres {prov['cg_relres']}")
+        lines.append(f"run (component timers, synchronizing): {timed:.3f} s")
+        lines += _component_lines(ct, timed)
+        op = res["operator"]
+        b = (op.excitation(1) if problem == "Magnetostatic"
+             else op.excitation(1)[1])
+        sync()
+        t0 = time.perf_counter()
+        iodata = IoData(cfg)
+        x, its, _ = common.solve_spd(iodata, op.Keli, op.K, b, op.ess_mask)
+        sync()
+        lines.append(f"one more solve (plain): {time.perf_counter() - t0:.3f}"
+                     f" s, {its} iterations")
+        _profiled(lambda: common.solve_spd(iodata, op.Keli, op.K, b,
+                                           op.ess_mask),
+                  cuda, sync, work, lambda: 0, lines,
+                  f"{problem} CG solve")
+        del res, op, x, b
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--problem", choices=("driven", "eigen", "adaptive"),
-                    default="driven")
+    ap.add_argument("--problem", choices=("driven", "eigen", "adaptive",
+                                          "static"), default="driven")
     ap.add_argument("--n", type=int, default=None,
                     help="cells per side (default 16 driven, 12 eigen and "
                     "adaptive)")
-    ap.add_argument("--order", type=int, default=3)
+    ap.add_argument("--order", type=int, default=None,
+                    help="element order (default 3; 2 for static)")
+    ap.add_argument("--h", type=float, default=0.5,
+                    help="rings cell size in um (static)")
     ap.add_argument("--device", default="cuda:0")
     args = ap.parse_args(argv)
     if args.n is None:
         args.n = 16 if args.problem == "driven" else 12
+    if args.order is None:
+        args.order = 2 if args.problem == "static" else 3
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
     if cuda and not torch.cuda.is_available():
@@ -485,13 +571,14 @@ def main(argv=None) -> int:
     lines = [f"card: {card}; torch {torch.__version__}"]
     work = tempfile.mkdtemp()
     {"driven": _profile_driven, "eigen": _profile_eigen,
-     "adaptive": _profile_adaptive}[args.problem](
+     "adaptive": _profile_adaptive, "static": _profile_static}[args.problem](
         args, dev, cuda, sync, lines, work)
 
     report = "\n".join(lines)
     os.makedirs("chiprun_out", exist_ok=True)
     name = {"driven": "profile_slice.txt", "eigen": "profile_eigen.txt",
-            "adaptive": "profile_adaptive.txt"}[args.problem]
+            "adaptive": "profile_adaptive.txt",
+            "static": "profile_static.txt"}[args.problem]
     with open(os.path.join("chiprun_out", name), "w") as f:
         f.write(report + "\n")
     print(report)

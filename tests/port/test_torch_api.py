@@ -7,13 +7,14 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import palace_torch
 from palace_torch.__main__ import main as cli_main
 from palace_torch.cases import (write_adaptive_case, write_eigen_case,
-                                 write_slice_case)
+                                 write_rings_case, write_slice_case)
 from palace_torch.config import IoData
 from palace_torch.device import resolve_device
 from palace_torch.drivers import driven
@@ -42,9 +43,20 @@ def test_resolve_device():
             resolve_device("GPU")
 
 
+def _rings_es(directory, h, order, **kw):
+    return write_rings_case(directory, 4.0 * h, order,
+                            problem="Electrostatic", **kw)
+
+
+def _rings_ms(directory, h, order, **kw):
+    return write_rings_case(directory, 4.0 * h, order, **kw)
+
+
 @pytest.mark.parametrize("writer", [write_slice_case, write_eigen_case,
-                                    write_adaptive_case],
-                         ids=["driven", "eigen", "adaptive"])
+                                    write_adaptive_case, _rings_es,
+                                    _rings_ms],
+                         ids=["driven", "eigen", "adaptive", "electrostatic",
+                              "magnetostatic"])
 def test_entry_points_default_to_the_gpu(tmp_path, writer):
     """The case writers and the port's schema pick the GPU unless asked for
     the CPU; without CUDA a run then refuses to start."""
@@ -61,6 +73,23 @@ def test_entry_points_default_to_the_gpu(tmp_path, writer):
             palace_torch.run(path)
 
 
+@pytest.mark.parametrize("problem,table", [
+    ("Electrostatic", "terminal-C.csv"), ("Magnetostatic", "terminal-M.csv")])
+def test_cli_runs_static_drivers(tmp_path, problem, table):
+    """`python -m palace_torch` (its main) on a coarse rings case on the
+    CPU; the run writes its tables and the solve provenance."""
+    cfg = write_rings_case(str(tmp_path), 4.0, 1, problem=problem,
+                           tol=1e-8, device="CPU", verbose=0)
+    assert cli_main([cfg, "-o", str(tmp_path / "out")]) == 0
+    data = np.loadtxt(tmp_path / "out" / table, delimiter=",", skiprows=1)
+    assert data.shape == (2, 3) and np.isfinite(data).all()
+    assert data[0, 1] > 0 and data[1, 2] > 0
+    with open(tmp_path / "out" / "palace.json") as f:
+        meta = json.load(f)
+    assert meta["Problem"]["Type"] == problem
+    assert "Linearsolve" in meta["ElapsedTime"]["Durations"]
+
+
 def test_solver_routing(tmp_path):
     iodata = IoData(write_slice_case(str(tmp_path), 2, 1, device="CPU"))
     assert driven.use_device_ksp(iodata, 100)  # explicit GMG
@@ -72,7 +101,7 @@ def test_solver_routing(tmp_path):
 
 
 @pytest.mark.parametrize("feature,item", [
-    ("amr", "electrostatic/magnetostatic/AMR"),
+    ("amr", "driven and eigenmode AMR"),
     ("paraview", "surface, far-field and ParaView postprocessing"),
 ])
 def test_unported_features_name_roadmap_item(tmp_path, feature, item):
@@ -88,8 +117,6 @@ def test_unported_features_name_roadmap_item(tmp_path, feature, item):
 
 
 @pytest.mark.parametrize("ptype,item", [
-    ("ELECTROSTATIC", "electrostatic/magnetostatic/AMR"),
-    ("MAGNETOSTATIC", "electrostatic/magnetostatic/AMR"),
     ("TRANSIENT", "transient/boundary-mode"),
 ])
 def test_unported_drivers_name_roadmap_item(ptype, item):

@@ -204,7 +204,7 @@ _UNPORTED = {
                      "FarField": {"Attributes": [1]}})),
     "paraview": ("eigenmode surface, far-field and ParaView output",
                  lambda c: c["Solver"]["Eigenmode"].update(Save=1)),
-    "amr": ("electrostatic/magnetostatic/AMR",
+    "amr": ("driven and eigenmode AMR",
             lambda c: c["Model"].update(Refinement={"MaxIts": 1})),
 }
 

@@ -6,9 +6,11 @@
   palace_tpu, function-level imports and string imports (`__import__`,
   `importlib.import_module`) included.
 - At run time: in a fresh interpreter whose import system refuses those
-  packages, every palace_torch module imports, the 3^3 driven slice case and
-  the box-tet eigenmode case (host branch) run on the CPU, and neither
-  package is in sys.modules at the end.  The eigenmode device branch runs
+  packages, every palace_torch module imports, the 3^3 driven slice case,
+  the box-tet eigenmode case (host branch), a coarse rings magnetostatic
+  case and a hex electrostatic AMR pass (nonconforming refinement and its
+  host solve) run on the CPU, and neither package is in sys.modules at the
+  end.  The eigenmode device branch runs
   under the same guard in test_torch_eigen.py."""
 
 import ast
@@ -57,6 +59,28 @@ with open(os.path.join(eig, "case.json"), "w") as f:
                    "Linear": {"Tol": 1e-9}}}, f)
 res = palace_torch.run(os.path.join(eig, "case.json"))
 assert len(res["frequencies_ghz"]) == 3
+from palace_torch.cases import write_rings_case
+from palace_torch.mesh.generate import box_hex
+
+res = palace_torch.run(write_rings_case(os.path.join(sys.argv[1], "mag"),
+                                        4.0, 1, device="CPU", verbose=0))
+assert res["M"].shape == (2, 2)
+amr = os.path.join(sys.argv[1], "amr")
+os.makedirs(amr)
+gmsh_write.write(box_hex(2, 2, 2), os.path.join(amr, "box.msh"))
+with open(os.path.join(amr, "case.json"), "w") as f:
+    json.dump({
+        "Problem": {"Type": "Electrostatic", "Verbose": 0, "Output": "out"},
+        "Model": {"Mesh": "box.msh", "L0": 1.0e-3,
+                  "Refinement": {"Tol": 1e-12, "MaxIts": 1}},
+        "Domains": {"Materials": [{"Attributes": [1], "Permittivity": 1.0}]},
+        "Boundaries": {"Terminal": [{"Index": 1, "Attributes": [1]}],
+                       "Ground": {"Attributes": [5]}},
+        "Solver": {"Order": 1, "Device": "CPU",
+                   "Linear": {"Tol": 1e-12}}}, f)
+res = palace_torch.run(os.path.join(amr, "case.json"))
+assert res["amr_iterations"] == 1
+assert res["provenance"]["solver_path"] == "direct-nonconforming"
 assert not any(k.split(".")[0] in REFUSED for k in sys.modules)
 print("NOJAX-OK")
 """
