@@ -13,10 +13,10 @@ result line):
      point has none;
   3. kernels against plain: both structured-apply kernels (natural channel
      order, carry-class order) against their plain PyTorch versions on the
-     card at small shapes and at p = 3, 16^3 and 12^3, B = 16 (the driven
-     and eigen paths' shape), float64 and float32; the first kernel also at
-     the adaptive path's p = 3, 12^3, B = 2, float64.  At those shapes: the
-     CUDA-event
+     card at small shapes and at p = 3, 16^3, 12^3 and 10^3, B = 16 (the
+     driven and eigen paths' shapes), float64 and float32; the first kernel
+     also at the adaptive path's p = 3, 10^3, B = 2, float64.  At those
+     shapes: the CUDA-event
      medians of both kernels (one call each, host work included), both
      plain versions and the stencil F.conv3d that computes the same
      operator (library_ms), the card's least time for the work (bound_ms),
@@ -30,16 +30,16 @@ result line):
      of every column, and the written tables;
   5. driven card against host: the 4^3, Order 2 case on the GPU and on the
      CPU; domain-E.csv must agree to 1e-8;
-  6. eigenmode path: palace_torch.run on the eigenmode case (12^3 hex box,
-     Order 3, 147,852 dofs, 4 modes near 5 GHz, Tol 1e-8) on the GPU; checks
+  6. eigenmode path: palace_torch.run on the eigenmode case (10^3 hex box,
+     Order 3, 86,490 dofs, 4 modes near 5 GHz, Tol 1e-8) on the GPU; checks
      the device Lanczos branch and the structured fine level ran, the second
      kernel launched (and the first did not), the modes against the analytic
      cavity frequencies, every backward error, an independent host residual
      of every pair, and the written tables;
   7. eigenmode card against host: the 3^3, Order 2 case (Tol 1e-5) on the
      GPU and on the CPU; eig.csv Re{f} must agree to 1e-10;
-  8. adaptive path: palace_torch.run on the adaptive PROM case (12^3 hex
-     box, Order 3, 147,852 dofs, 2.0-7.0 GHz in 0.1 GHz steps across the
+  8. adaptive path: palace_torch.run on the adaptive PROM case (10^3 hex
+     box, Order 3, 86,490 dofs, 2.0-7.0 GHz in 0.1 GHz steps across the
      first resonance, AdaptiveTol 1e-6, GMG Tol 1e-8) on the GPU; checks
      every greedy HDM solve ran on the device solver with the structured
      fine level (no sparse-direct fallback), the first kernel launched (and
@@ -75,15 +75,47 @@ result line):
      two tet AMR loops (MaxIts 2) on the GPU and on the CPU: the parallel
      plate of tests/test_amr.py:42 (terminal-C.csv within 1e-8) and the
      same box with terminal and ground on adjacent faces (the same element
-     counts per iteration, terminal-C.csv within 1e-8).
-Neither structured-apply kernel runs on phases 10-13 (element-mode
-operators, plain torch); the kernel record counts their launches there (0).
+     counts per iteration, terminal-C.csv within 1e-8);
+ 14. wave-port path: palace_torch.run on the WR-90 guide between two wave
+     ports (36 x 8 x 6 hexes, Order 3, 150,054 dofs, 8 frequencies
+     8.2-12.4 GHz, GMG, Tol 1e-8, port EigenTol 1e-12) on the GPU; checks
+     the device solver ran every column (no direct re-solve) on the element
+     fine level with the ports' gradient deflation and quadrant phase
+     reference, every relres, the host residual of every column against
+     scipy's A(omega) = K + i omega C - omega^2 M + i Re kn Mwp and
+     b = i omega rhs1 + rhs2, and S and Re kn against the analytic TE10
+     line; prints the timers, the FGMRES iterations, the peak memory and the
+     element fine level's apply (its device time at this shape, its bound
+     and its calls in the run);
+ 15. wave-port adaptive path: the guide at 24 x 8 x 6 (100,338 dofs; its
+     depth cut from phase 14's 36 cells) swept in 0.05 GHz steps (85
+     frequencies, AdaptiveTol 1e-6, AdaptiveMemory 2); checks every greedy
+     HDM solve ran on the device solver (no direct re-solve), the loop
+     stopped by AdaptiveMemory, every HDM relres and host residual, the
+     PROM's S against phase 14's at its 8 frequencies (1e-5, the
+     difference of the two depths included) and the PROM
+     field against a fresh HDM solve at 3 frequencies (1e-4 relative);
+ 16. frequency-dependent boundaries: (a) the guide shorted by a copper
+     Conductivity wall at phase 14's depth, 4 frequencies, on the GPU
+     (device solver with the conductivity0 term; relres, host residuals,
+     1 - |S11| within 1% of the analytic TE10 short's 1 - |Gamma|);
+     (b) the guide ended by a second-order Absorbing boundary at 9 x 4 x 3,
+     Order 2, uniform (GMG, 8 frequencies) and adaptive (0.3 GHz steps,
+     the slow-A2 path, sparse-direct HDM solves) on the GPU and on the
+     CPU: port-S.csv GPU against CPU within 1e-8, adaptive against uniform
+     within 5e-6;
+ 17. wave ports, card against host: the guide at 9 x 4 x 3, Order 2 (GMG)
+     on the GPU and on the CPU; port-S.csv and domain-E.csv within 1e-8.
+Neither structured-apply kernel runs on phases 10-17 (element-mode
+operators and the element fine level, plain torch); the kernel record
+counts their launches there (0).
 The line before the last is the kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import cmath
 import json
 import math
 import os
@@ -98,21 +130,26 @@ import time
 #: p = 4 (39 n-tiles) runs the core's two-pass route; p <= 3 one pass.
 KERNEL_CASES = [(1, (3, 2, 4)), (2, (3, 2, 4)), (3, (3, 2, 4)),
                 (4, (3, 2, 4)), (4, (8, 8, 8)), (2, (24, 24, 24)),
-                (3, (12, 12, 12)), (3, (16, 16, 16))]
+                (3, (10, 10, 10)), (3, (12, 12, 12)), (3, (16, 16, 16))]
 BATCH = 16  # B = 2F, F = 8 columns
 #: Uniform driven phase depth (cut from 16^3 so that the adaptive phases
 #: fit the time limit) and the dof counts at p = 3.
 DRIVEN_N = 12
-P3_DOFS = {12: 147852, 16: 345744}
+#: Eigenmode phase depth (cut from 12^3 so that the wave-port phases fit
+#: the time limit).
+EIGEN_N = 10
+P3_DOFS = {10: 86490, 12: 147852, 16: 345744}
 #: The main-path shape of each kernel: the driven path runs the first
-#: kernel at DRIVEN_N^3, the eigenmode path the second at 12^3.  Both
-#: kernels are timed at 12^3 and 16^3.
-DRIVEN_SHAPE, EIGEN_SHAPE = (DRIVEN_N,) * 3, (12, 12, 12)
-TIMED_SHAPES = ((16, 16, 16), (12, 12, 12))
+#: kernel at DRIVEN_N^3, the eigenmode path the second at EIGEN_N^3.  Both
+#: kernels are timed at 10^3, 12^3 and 16^3.
+DRIVEN_SHAPE, EIGEN_SHAPE = (DRIVEN_N,) * 3, (EIGEN_N,) * 3
+TIMED_SHAPES = ((16, 16, 16), (12, 12, 12), (10, 10, 10))
 MAIN_P = 3
-#: The adaptive path: one complex column per greedy HDM solve, so the first
-#: kernel runs at B = 2 on the 12^3 lattice.
-ADAPTIVE_SHAPE, ADAPTIVE_BATCH = (12, 12, 12), 2
+#: The adaptive path (its depth cut from 12^3 so that the wave-port phases
+#: fit the time limit): one complex column per greedy HDM solve, so the
+#: first kernel runs at B = 2 on the ADAPTIVE_N^3 lattice.
+ADAPTIVE_N = 10
+ADAPTIVE_SHAPE, ADAPTIVE_BATCH = (ADAPTIVE_N,) * 3, 2
 TOL = {"float64": 1e-12, "float32": 1e-5}  # max abs err / max |y|
 #: NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and float64 FLOP/s on
 #: the tensor cores (DMMA; 34 TFLOP/s on the FMA pipes) and float32 FLOP/s
@@ -142,6 +179,26 @@ RINGS_DOFS = {"Magnetostatic": 1301308, "Electrostatic": 439597}
 RINGS_ES_TPU_C = [[5.181174572026425e-16, -2.3796437526088713e-16],
                   [-2.3796437526088713e-16, 1.7534384774114701e-15]]
 RINGS_ES_TPU_NORM = 1.906768991038e-01
+#: The wave-port phases' WR-90 guide (palace_torch/cases.py): hexes along
+#: the guide, its width and its height, the order, and its ND dofs; the
+#: small guide of phases 16b and 17 (hexes and order).
+GUIDE_N, GUIDE_P, GUIDE_DOFS = (36, 8, 6), 3, 150054
+SMALL_GUIDE = (9, 4, 3, 2)
+#: Phase 15's guide, cut from phase 14's 36 cells along the guide so that
+#: the script fits its time limit, and its ND dofs.  Its S differs from
+#: phase 14's by the discretization along the guide: on the CPU, with the
+#: 4 x 3, Order 3 cross-section, 24 against 36 cells differ by 1.7e-6 (18
+#: cells by 1.0e-5).
+ADAPTIVE_GUIDE_N, ADAPTIVE_GUIDE_DOFS = (24, 8, 6), 100338
+GUIDE_A, GUIDE_L = 22.86e-3, 60e-3  # m
+MU0, ETA0, COPPER_SIGMA = 1.25663706127e-6, 376.730313412, 5.8e7
+#: Phase 14's gates against the analytic TE10 line: ||S21| - 1|, |S11|,
+#: |arg S21 + beta L| (rad) and |Re kn / beta - 1|.  On the CPU both
+#: packages gave at 36 x 4 x 3, Order 3: 3.3e-15 / 5.1e-15, 7.7e-9,
+#: 1.25e-5 (set by the 4 x 3 cross-section's kn) and 2.0e-6, and Re kn on
+#: the 8 x 6, Order 3 cross-section is within 3.2e-8
+#: (scripts/waveguide_reference.py).
+GUIDE_GATES = {"S21": 1e-6, "S11": 1e-6, "phase": 1e-4, "kn": 1e-6}
 
 
 class SmokeFailure(Exception):
@@ -409,8 +466,8 @@ def phase_kernels():
 
 def _time_adaptive_shape():
     """Kernel #1 at the adaptive path's shape: one complex column of a
-    greedy HDM solve, B = 2 (its real and imaginary parts), p = 3, 12^3,
-    float64; the same timings as the main-path rows."""
+    greedy HDM solve, B = 2 (its real and imaginary parts), p = 3,
+    ADAPTIVE_N^3, float64; the same timings as the main-path rows."""
     import numpy as np
     import torch
 
@@ -541,13 +598,9 @@ def phase_driven(workdir: str):
 
     # Host residual per column from the assembled system (scipy only).
     sop = res["sop"]
-    K, C, M = sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr()
-    worst = 0.0
-    for (ex, i), x in res["solutions"].items():
-        w = res["omegas"][i]
-        b = 1j * w * sop.rhs1(ex)
-        r = b - sop.system_csr(w, K, C, M) @ x
-        worst = max(worst, float(np.linalg.norm(r) / np.linalg.norm(b)))
+    KCM = (sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr())
+    worst = max(_host_residual(sop, x, res["omegas"][i], ex, KCM)
+                for (ex, i), x in res["solutions"].items())
     check(worst <= 1e-7, f"host residual {worst:.3e} > 1e-7")
     post = res["post_dir"]
     for name in ("domain-E.csv", "error-indicators.csv", "port-S.csv"):
@@ -589,8 +642,8 @@ def phase_eigen(workdir: str):
 
     tol = 1e-8
     t_phase = time.perf_counter()
-    cfg = write_eigen_case(os.path.join(workdir, "eigen"), 12, 3, tol=tol,
-                           device="GPU", verbose=0)
+    cfg = write_eigen_case(os.path.join(workdir, "eigen"), EIGEN_N, 3,
+                           tol=tol, device="GPU", verbose=0)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
@@ -600,7 +653,8 @@ def phase_eigen(workdir: str):
     other, launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     prov = res["provenance"]
-    check(res["num_dofs"] == 147852, f"unexpected dof count {res['num_dofs']}")
+    check(res["num_dofs"] == P3_DOFS[EIGEN_N],
+          f"unexpected dof count {res['num_dofs']}")
     check(prov.get("eigen_path") == "device-lanczos", f"eigen path {prov}")
     check(prov.get("fine_level") == "structured",
           f"structured fine level did not engage ({prov})")
@@ -637,7 +691,7 @@ def phase_eigen(workdir: str):
     post = res["post_dir"]
     for name in ("eig.csv", "domain-E.csv", "error-indicators.csv"):
         _table(os.path.join(post, name))
-    print(f"[6 eigen] 12^3 hex p=3: {res['num_dofs']} dofs, Re f "
+    print(f"[6 eigen] {EIGEN_N}^3 hex p=3: {res['num_dofs']} dofs, Re f "
           f"{', '.join(f'{v:.9f}' for v in f)} GHz (analytic {f101:.9f} x3, "
           f"{f111:.9f}; max relative error {ferr.max():.3e}), max backward "
           f"error {bkwd.max():.3e}, host residual {worst:.3e}; Lanczos "
@@ -674,11 +728,26 @@ def phase_eigen_parity(workdir: str):
 
 
 def _host_residual(sop, E, omega, ex, KCM) -> float:
-    """||b - A(omega) E|| / ||b|| from the assembled system (scipy only)."""
+    """||b - A(omega) E|| / ||b|| with scipy's CSRs (no torch): A = K +
+    i omega C - omega^2 M plus the frequency-dependent boundary terms (wave
+    ports i Re kn Mwp, Conductivity, second-order Absorbing), PEC rows and
+    columns replaced by the identity as `system_csr` does, applied term by
+    term; b = i omega rhs1 plus the wave-port rhs2."""
     import numpy as np
 
+    K, C, M = KCM
+    ess = sop.ess_mask
     b = 1j * omega * sop.rhs1(ex)
-    r = b - sop.system_csr(omega, *KCM) @ E
+    if sop.wave_ports:
+        b = b + sop.waveport_rhs2(ex, omega)
+    x = np.where(ess, 0.0, E)
+    Ax = K @ x - (omega * omega) * (M @ x)
+    if C is not None:
+        Ax = Ax + 1j * omega * (C @ x)
+    A2 = sop.a2_csr(omega)
+    if A2 is not None:
+        Ax = Ax + A2 @ x
+    r = b - np.where(ess, E, Ax)
     return float(np.linalg.norm(r) / np.linalg.norm(b))
 
 
@@ -690,8 +759,8 @@ def _ghz(sop, omega) -> float:
 
 
 def phase_adaptive(workdir: str):
-    """The adaptive PROM sweep on the 12^3, p = 3 cavity (2.0-7.0 GHz, 51
-    online frequencies, across the 6.245676 GHz resonance)."""
+    """The adaptive PROM sweep on the ADAPTIVE_N^3, p = 3 cavity (2.0-7.0
+    GHz, 51 online frequencies, across the 6.245676 GHz resonance)."""
     import numpy as np
     import torch
 
@@ -700,7 +769,7 @@ def phase_adaptive(workdir: str):
 
     t_phase = time.perf_counter()
     tol = 1e-6  # the case's AdaptiveTol
-    cfg = write_adaptive_case(os.path.join(workdir, "adaptive"), 12, 3,
+    cfg = write_adaptive_case(os.path.join(workdir, "adaptive"), ADAPTIVE_N, 3,
                               device="GPU", verbose=0)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
@@ -711,7 +780,7 @@ def phase_adaptive(workdir: str):
     launches, other = _counts()
     peak = torch.cuda.max_memory_allocated()
     prov, prom = res["provenance"], res["prom"]
-    check(res["num_dofs"] == P3_DOFS[12],
+    check(res["num_dofs"] == P3_DOFS[ADAPTIVE_N],
           f"unexpected dof count {res['num_dofs']}")
     check(prov.get("solver_path") == "prom-adaptive"
           and prov.get("prom_hdm_path") == "device"
@@ -756,7 +825,7 @@ def phase_adaptive(workdir: str):
     samples = ", ".join(
         f"{_ghz(sop, om):.6f} ({err:.2e})" for _, om, err in prom.samples)
     its = sum(prom.hdm_iterations.values())
-    print(f"[8 adaptive] 12^3 hex p=3: {res['num_dofs']} dofs, "
+    print(f"[8 adaptive] {ADAPTIVE_N}^3 hex p=3: {res['num_dofs']} dofs, "
           f"{len(prom.samples)} HDM samples, f* GHz (PROM error) {samples}; "
           f"stopped by AdaptiveMemory; basis {prom.basis_size}; HDM FGMRES "
           f"iterations {its}, max relres {max(relres.values()):.3e}, host "
@@ -1179,6 +1248,344 @@ def phase_electrostatic_parity(workdir: str):
           f" phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _te10(f_ghz: float):
+    """(k, beta) of the WR-90 guide's TE10 mode at f GHz, in 1/m."""
+    k = 2 * math.pi * f_ghz * 1e9 / C0
+    return k, math.sqrt(k * k - (math.pi / GUIDE_A) ** 2)
+
+
+def _s_table_diff(a, b) -> float:
+    """Max over entries of |a - b| / max(|b|, 1): the dB of |S| ~ 1 sits
+    near 0, where a column-relative difference would measure round-off."""
+    import numpy as np
+
+    return float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max())
+
+
+class _ElemApplies:
+    """Counts the element fine level's applies (`ElemTermOperator.__call__`)
+    while it is entered; the method is restored on exit."""
+
+    def __enter__(self):
+        from palace_torch.linalg import device_ksp
+
+        self.cls, self.count = device_ksp.ElemTermOperator, 0
+        self.orig = self.cls.__call__
+        orig = self.orig
+
+        def call(op, coefs, u):
+            self.count += 1
+            return orig(op, coefs, u)
+
+        self.cls.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.orig
+
+
+def _elem_apply_report(sop, omegas) -> dict:
+    """The element fine level (`ElemTermOperator`) at the sweep's block
+    shape: y = sum_t c_t X_t u for F complex columns.  Median of single
+    calls, device time (50 calls queued behind a sleeping kernel), and the
+    bound: the A_e tables, the gathered u (nd values of 2F reals per
+    element), the scattered products and y moved once over the memory rate,
+    or 2 nd^2 2F operations per element over the float64 peak."""
+    import numpy as np
+    import torch
+
+    from palace_torch.linalg.device_ksp import ElemTermOperator
+
+    dev = torch.device("cuda:0")
+    terms = sop.driven_terms(omegas)
+    n, F = sop.space.num_dofs, len(omegas)
+    op = ElemTermOperator(terms, n, dev)
+    coefs = torch.as_tensor(np.array([[t.coef(w) for w in omegas]
+                                      for t in terms]), device=dev)
+    rng = np.random.default_rng(2)
+    u = torch.as_tensor(rng.standard_normal((n, F))
+                        + 1j * rng.standard_normal((n, F)), device=dev)
+    a_bytes = sum(8 * A.numel() for _, _, A in op._entries)
+    local = sum(8 * A.shape[0] * A.shape[1] * 2 * F for _, _, A in op._entries)
+    nbytes = a_bytes + 2 * local + 8 * n * 2 * F
+    flops = sum(2.0 * A.numel() * 2 * F for _, _, A in op._entries)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["float64"]
+    rep = {"ms": _time_ms(lambda: op(coefs, u)),
+           "device_ms": _device_ms(lambda: op(coefs, u)),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "columns": F, "terms": len(terms),
+           "elements": sum(int(A.shape[0]) for _, _, A in op._entries)}
+    del op
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _guide_run(workdir: str, tag: str, n=None, dofs=None, **kw):
+    """One run of the WR-90 guide (n hexes, GUIDE_N by default, Order
+    GUIDE_P) on the GPU: (result, wall seconds, peak device memory, element
+    fine-level applies); checks neither kernel launched."""
+    import torch
+
+    import palace_torch
+    from palace_torch.cases import write_waveguide_case
+
+    n, dofs = (GUIDE_N, GUIDE_DOFS) if n is None else (n, dofs)
+    cfg = write_waveguide_case(os.path.join(workdir, tag), *n, GUIDE_P,
+                               device="GPU", verbose=0, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _ElemApplies() as applies:
+        res = palace_torch.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    check(launches == (0, 0), f"{tag}: structured kernels launched "
+                              f"{launches} times on the element fine level")
+    check(res["num_dofs"] == dofs,
+          f"{tag}: unexpected dof count {res['num_dofs']}")
+    prov = res["provenance"]
+    check(prov.get("fine_level") == "element",
+          f"{tag}: fine level {prov.get('fine_level')}, not element")
+    check(all(prov.get(f"waveport{i}_deflation") for i in res["sop"]
+              .wave_ports), f"{tag}: a port mode ran without its gradient "
+                            f"deflation ({prov})")
+    for wp in res["sop"].wave_ports.values():
+        phases = {sol.phase for sol in wp._mode_cache.values()}
+        check(phases == {"quadrant"}, f"{tag}: port {wp.index} phase "
+                                      f"references {phases}")
+    return res, wall, torch.cuda.max_memory_allocated(), applies.count
+
+
+def _uniform_checks(tag, res):
+    """Device solver on every column (no direct re-solve), each column's
+    relres and host residual; returns (max relres, max host residual)."""
+    prov, info = res["provenance"], res["ksp"]
+    check(prov.get("solver_path") == "device",
+          f"{tag}: solver path {prov.get('solver_path')}")
+    relres = info.get("col_relres", {})
+    check(len(relres) == len(res["omegas"]) and max(relres.values()) <= 1e-8,
+          f"{tag}: column relres {relres}")
+    sop = res["sop"]
+    KCM = (sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr())
+    worst = max(_host_residual(sop, E, res["omegas"][i], ex, KCM)
+                for (ex, i), E in res["solutions"].items())
+    check(worst <= 1e-7, f"{tag}: host residual {worst:.3e} > 1e-7")
+    return max(relres.values()), worst
+
+
+def phase_waveport(workdir: str):
+    """The WR-90 guide between two wave ports at full width on the GPU;
+    returns (kernel launches, {f GHz: (S11, S21)}); `_guide_run` has
+    checked that neither kernel launched."""
+    t_phase = time.perf_counter()
+    res, wall, peak, applies = _guide_run(workdir, "guide")
+    relres, resid = _uniform_checks("waveport", res)
+    sop, meas = res["sop"], res["measurements"]
+    S = {}
+    worst = dict.fromkeys(("S21", "S11", "phase", "kn"), 0.0)
+    for (ex, i), m in meas.items():
+        f = res["freqs_ghz"][i]
+        k, beta = _te10(f)
+        S11, S21 = m.ports[1].S, m.ports[2].S
+        S[round(f, 9)] = (S11, S21)
+        omega = res["omegas"][i]  # nondimensional, where c = 1
+        kn = sop.wave_ports[1].solve_mode(omega).kn.real
+        worst["S21"] = max(worst["S21"], abs(abs(S21) - 1.0))
+        worst["S11"] = max(worst["S11"], abs(S11))
+        worst["phase"] = max(worst["phase"], abs(cmath.phase(
+            S21 * cmath.exp(1j * beta * GUIDE_L))))
+        worst["kn"] = max(worst["kn"], abs(kn / omega * k / beta - 1.0))
+    for key, gate in GUIDE_GATES.items():
+        check(worst[key] <= gate, f"waveport: TE10 {key} error "
+                                  f"{worst[key]:.3e} > {gate:.0e}")
+    for name in ("port-S.csv", "domain-E.csv", "error-indicators.csv"):
+        _table(os.path.join(res["post_dir"], name))
+    rep = _elem_apply_report(sop, res["omegas"])
+    prov = res["provenance"]
+    print(f"[14 waveport] WR-90 {'x'.join(map(str, GUIDE_N))} hex p="
+          f"{GUIDE_P}: {res['num_dofs']} dofs, {len(meas)} columns, FGMRES "
+          f"iterations {res['ksp'].get('total_its')} total, max relres "
+          f"{relres:.3e}, host residual {resid:.3e}; against the analytic "
+          f"TE10 line: ||S21| - 1| {worst['S21']:.3e}, |S11| "
+          f"{worst['S11']:.3e}, arg S21 + beta L {worst['phase']:.3e} rad, "
+          f"Re kn / beta - 1 {worst['kn']:.3e}; port mode solves "
+          f"{prov.get('waveport_mode_solves')} in "
+          f"{prov.get('waveport_mode_seconds', 0.0):.2f} s (host); element "
+          f"fine level (E={rep['elements']}, {rep['terms']} terms, F="
+          f"{rep['columns']}, {rep['bytes'] / 1e9:.3f} GB) median "
+          f"{rep['ms']:.4f} ms, device {rep['device_ms']:.4f} ms, bound "
+          f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}), {applies} applies "
+          f"in the run; {_durations(res['post_dir'])}, run {wall:.2f} s; "
+          f"peak device memory {peak / 2 ** 30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0, S
+
+
+def phase_waveport_adaptive(workdir: str, S14):
+    """The guide's adaptive PROM sweep (85 frequencies) on the GPU, at
+    ADAPTIVE_GUIDE_N; its S is held against phase 14's (at GUIDE_N, so the
+    difference includes the discretization along the guide)."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    tol = 1e-6  # the case's AdaptiveTol
+    res, wall, peak, applies = _guide_run(
+        workdir, "guide_adaptive", n=ADAPTIVE_GUIDE_N,
+        dofs=ADAPTIVE_GUIDE_DOFS, adaptive=True)
+    prov, prom, sop = res["provenance"], res["prom"], res["sop"]
+    check(prov.get("solver_path") == "prom-adaptive"
+          and prov.get("prom_hdm_path") == "device"
+          and not prov.get("prom_hdm_direct_fallbacks"),
+          f"waveport adaptive provenance {prov}")
+    check(prom.stopped_by == {1: "memory"},
+          f"greedy loop stopped by {prom.stopped_by}, not AdaptiveMemory")
+    relres = prom.hdm_relres
+    check(len(relres) == len(prom.samples) and max(relres.values()) <= 1e-8,
+          f"HDM relres {relres}")
+    KCM = (sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr())
+    resid = max(_host_residual(sop, E, om, ex, KCM)
+                for (ex, om), E in prom.hdm.items())
+    check(resid <= 1e-7, f"HDM host residual {resid:.3e} > 1e-7")
+    freqs = np.asarray(res["freqs_ghz"])
+    sdiff = 0.0
+    for f, (S11, S21) in S14.items():
+        i = int(np.argmin(np.abs(freqs - f)))
+        check(abs(freqs[i] - f) <= 1e-9, f"{f} GHz is not on the PROM grid")
+        m = res["measurements"][(1, i)]
+        sdiff = max(sdiff, abs(m.ports[1].S - S11), abs(m.ports[2].S - S21))
+    check(sdiff <= 1e-5, f"PROM S against phase 14's: {sdiff:.3e} > 1e-5")
+    solver, errs = prom.solver, []
+    for f in (8.65, 10.35, 12.05):
+        i = int(np.argmin(np.abs(freqs - f)))
+        om = res["omegas"][i]
+        b = 1j * om * sop.rhs1(1) + sop.waveport_rhs2(1, om)
+        X, info = solver.solve(b[:, None], omega_idx=[solver.add_omega(om)])
+        check(float(info["relres"][0]) <= 1e-8,
+              f"fresh HDM solve at {f} GHz: relres {info['relres']}")
+        E = res["solutions"][(1, i)]
+        errs.append(float(np.linalg.norm(E - X[:, 0])
+                          / np.linalg.norm(X[:, 0])))
+    check(max(errs) <= 100 * tol, f"PROM against HDM at 8.65, 10.35, 12.05 "
+                                  f"GHz: {errs} > {100 * tol:.0e}")
+    for name in ("port-S.csv", "domain-E.csv", "error-indicators.csv"):
+        _table(os.path.join(res["post_dir"], name))
+    samples = ", ".join(f"{_ghz(sop, om):.6f} ({err:.2e})"
+                        for _, om, err in prom.samples)
+    print(f"[15 waveport adaptive] WR-90 "
+          f"{'x'.join(map(str, ADAPTIVE_GUIDE_N))} hex p={GUIDE_P}: "
+          f"{res['num_dofs']} "
+          f"dofs, {len(freqs)} frequencies, {len(prom.samples)} HDM samples, "
+          f"f* GHz (PROM error) {samples}; stopped by AdaptiveMemory; basis "
+          f"{prom.basis_size}; HDM FGMRES iterations "
+          f"{sum(prom.hdm_iterations.values())}, max relres "
+          f"{max(relres.values()):.3e}, host residual {resid:.3e}; S against "
+          f"phase 14's {'x'.join(map(str, GUIDE_N))} guide {sdiff:.3e}; "
+          f"PROM vs fresh HDM at 8.65/10.35/12.05 GHz "
+          f"{', '.join(f'{e:.3e}' for e in errs)}; port mode solves "
+          f"{prov.get('waveport_mode_solves')} in "
+          f"{prov.get('waveport_mode_seconds', 0.0):.2f} s (host); "
+          f"{applies} element applies; {_durations(res['post_dir'])}, run "
+          f"{wall:.2f} s; peak device memory {peak / 2 ** 30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
+def phase_boundaries(workdir: str):
+    """(a) The copper-shorted guide at full width on the GPU; (b) the guide
+    ended by a second-order absorbing boundary at a small depth, uniform
+    and adaptive, GPU against CPU."""
+    import numpy as np
+
+    import palace_torch
+    from palace_torch.cases import write_waveguide_case
+
+    t_phase = time.perf_counter()
+    res, wall, peak, applies = _guide_run(workdir, "short",
+                                          termination="conductivity",
+                                          freq_step=1.4)
+    names = [t.name for t in res["sop"].driven_terms()]
+    check("conductivity0" in names, f"short: device terms {names}")
+    relres, resid = _uniform_checks("short", res)
+    worst = 0.0
+    for (ex, i), m in res["measurements"].items():
+        f = res["freqs_ghz"][i]
+        k, beta = _te10(f)
+        omega = 2 * math.pi * f * 1e9
+        Zs = (1 + 1j) * math.sqrt(omega * MU0 / (2 * COPPER_SIGMA))
+        Zte = ETA0 * k / beta
+        gamma = (Zs - Zte) / (Zs + Zte)
+        worst = max(worst, abs((1 - abs(m.ports[1].S)) / (1 - abs(gamma))
+                               - 1))
+    check(worst <= 1e-2, f"short: 1 - |S11| against 1 - |Gamma| {worst:.3e}"
+                         " > 1e-2")
+    line_a = (f"(a) copper short p={GUIDE_P}, {len(res['omegas'])} "
+              f"frequencies: terms {names}, max relres {relres:.3e}, host "
+              f"residual {resid:.3e}, 1 - |S11| within {worst:.3e} of the "
+              f"analytic 1 - |Gamma|, {applies} element applies, "
+              f"{_durations(res['post_dir'])}, run {wall:.2f} s, peak "
+              f"{peak / 2 ** 30:.3f} GiB")
+    out = {}
+    for device in ("GPU", "CPU"):
+        for adaptive in (False, True):
+            r = palace_torch.run(write_waveguide_case(
+                os.path.join(workdir, f"abc2_{device}_{adaptive}"),
+                *SMALL_GUIDE, termination="absorbing", adaptive=adaptive,
+                freq_step=0.3 if adaptive else 0.6, device=device,
+                verbose=0))
+            prov = r["provenance"]
+            want = "direct-slow-a2" if adaptive else "device"
+            got = prov.get("prom_hdm_path" if adaptive else "solver_path")
+            check(got == want, f"absorbing {device} adaptive={adaptive}: "
+                               f"path {got}, not {want}")
+            out[(device, adaptive)] = r
+    gpu_cpu = max(_s_table_diff(
+        _table(os.path.join(out[("GPU", a)]["post_dir"], "port-S.csv")),
+        _table(os.path.join(out[("CPU", a)]["post_dir"], "port-S.csv")))
+        for a in (False, True))
+    check(gpu_cpu <= 1e-8, f"absorbing port-S.csv GPU vs CPU {gpu_cpu:.3e}")
+    uni, ada = out[("GPU", False)], out[("GPU", True)]
+    fa = np.asarray(ada["freqs_ghz"])
+    ad_un = 0.0
+    for (ex, i), m in uni["measurements"].items():
+        j = int(np.argmin(np.abs(fa - uni["freqs_ghz"][i])))
+        ad_un = max(ad_un, abs(ada["measurements"][(ex, j)].ports[1].S
+                               - m.ports[1].S))
+    check(ad_un <= 5e-6, f"absorbing adaptive vs uniform S {ad_un:.3e}")
+    print(f"[16 boundaries] {line_a}; (b) second-order absorbing "
+          f"{'x'.join(map(str, SMALL_GUIDE[:3]))} p={SMALL_GUIDE[3]}: "
+          f"port-S.csv GPU vs CPU {gpu_cpu:.3e} (uniform GMG and slow-A2 "
+          f"adaptive, {len(ada['prom'].samples)} direct HDM samples), "
+          f"adaptive vs uniform S {ad_un:.3e}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
+def phase_waveport_parity(workdir: str):
+    import palace_torch
+    from palace_torch.cases import write_waveguide_case
+
+    t0 = time.perf_counter()
+    tabs = {}
+    for device in ("GPU", "CPU"):
+        r = palace_torch.run(write_waveguide_case(
+            os.path.join(workdir, f"guide_{device}"), *SMALL_GUIDE,
+            device=device, verbose=0))
+        check(r["provenance"].get("solver_path") == "device",
+              f"guide {device}: {r['provenance']}")
+        tabs[device] = [_table(os.path.join(r["post_dir"], name))
+                        for name in ("port-S.csv", "domain-E.csv")]
+    s = _s_table_diff(tabs["GPU"][0], tabs["CPU"][0])
+    e = _rel_diff(tabs["GPU"][1], tabs["CPU"][1])
+    check(s <= 1e-8 and e <= 1e-8, f"guide GPU vs CPU: port-S.csv {s:.3e}, "
+                                   f"domain-E.csv {e:.3e}")
+    print(f"[17 waveport parity] WR-90 {'x'.join(map(str, SMALL_GUIDE[:3]))} "
+          f"p={SMALL_GUIDE[3]}: port-S.csv GPU vs CPU {s:.3e}, domain-E.csv "
+          f"{e:.3e}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1202,8 +1609,14 @@ def main() -> int:
             phase_magnetostatic_reference(workdir)
             es = phase_electrostatic(workdir)
             phase_electrostatic_parity(workdir)
+            wp, S14 = phase_waveport(workdir)
+            wpa = phase_waveport_adaptive(workdir, S14)
+            bdr = phase_boundaries(workdir)
+            phase_waveport_parity(workdir)
             for name in by_path:
-                by_path[name].update(magnetostatic=mag, electrostatic=es)
+                by_path[name].update(magnetostatic=mag, electrostatic=es,
+                                     waveport=wp, waveport_adaptive=wpa,
+                                     boundaries=bdr)
     except SmokeFailure as e:
         print(f"FAILED: {e}", flush=True)
         return 1

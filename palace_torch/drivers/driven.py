@@ -5,7 +5,9 @@ each excitation as one blocked FGMRES + p-MG system on the run's device (or
 per frequency with host sparse direct), or, with `AdaptiveTol > 0`, build
 the adaptive PROM (`driven_adaptive.sweep_adaptive`) and evaluate it at
 every frequency; then measure port V/I/S/power, domain energies and probes,
-compute error indicators, and write the reference CSV table set.
+compute error indicators, and write the reference CSV table set; ports
+are lumped or wave ports, and the system carries the frequency-dependent
+boundary terms A2(omega) on every path.
 
 Deliberate divergence from the JAX package: an exception raised on the
 device path propagates; there is no silent re-solve with sparse direct.
@@ -76,6 +78,7 @@ class PortMeasurement:
     I: complex = 0.0
     S: complex = 0.0
     P: complex = 0.0
+    Z_PV: complex = 0.0  # wave port mode characteristic impedance V V* / P
     I_RLC: Tuple[complex, complex, complex] = (0.0, 0.0, 0.0)
     inductor_energy: float = 0.0
     capacitor_energy: float = 0.0
@@ -147,6 +150,20 @@ def measure_step(sop: SpaceOperator, E: np.ndarray, omega: float,
             pm.S = pm.S - 1.0
         m.ports[idx] = pm
 
+    for idx, wp in sop.wave_ports.items():
+        pm = PortMeasurement()
+        pm.S = sop.waveport_sparam(idx, E, omega)
+        if idx == _drive_port(sop, excitation_idx):
+            pm.S = pm.S - 1.0
+        pm.P = sop.port_power_trace(sop._wp_trace_bases[idx], E, omega)
+        if getattr(wp.cfg, "voltage_path", None):
+            # V_wp = int E . dl along the VoltagePath; Z_PV = V_exc V_exc*
+            # of the power-normalized mode.
+            pm.V = wp.solution_voltage(sop.space, E)
+            V_exc = wp.solve_mode(omega).V_exc
+            pm.Z_PV = V_exc * np.conj(V_exc)
+        m.ports[idx] = pm
+
     if probe_locs is not None:
         from palace_torch.fem import evaluation
 
@@ -158,6 +175,8 @@ def measure_step(sop: SpaceOperator, E: np.ndarray, omega: float,
 
 def _drive_port(sop: SpaceOperator, excitation_idx: int) -> Optional[int]:
     ports = [i for i, p in sop.ports.items() if p.excitation == excitation_idx]
+    ports += [i for i, p in sop.wave_ports.items()
+              if p.excitation == excitation_idx]
     return ports[0] if len(ports) == 1 else None
 
 
@@ -204,7 +223,8 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
         sop = SpaceOperator(iodata, mesh, device=device)
     print_log(iodata, f"driven: {sop.space.num_dofs} dofs, "
                       f"{mesh.num_elements} elements, "
-                      f"{len(sop.ports)} lumped ports, device {device}")
+                      f"{len(sop.ports)} lumped + {len(sop.wave_ports)} wave "
+                      f"ports, device {device}")
 
     freqs_ghz = driven_samples_ghz(iodata)
     fscale = units.scale_factor(ValueType.FREQUENCY)
@@ -362,7 +382,7 @@ def sweep_uniform_device(iodata, sop: SpaceOperator, omegas, excitations,
         if not todo:
             continue
         rhs1 = sop.rhs1(ex)
-        rhs = np.stack([1j * w * rhs1 for w in omegas], axis=1)
+        rhs = np.stack([_rhs(sop, ex, w, rhs1) for w in omegas], axis=1)
         X, info = solver.solve(rhs)
         total_its += int(info["iterations"].sum())
         relres_max = max(relres_max, float(np.max(info["relres"])))
@@ -379,13 +399,29 @@ def sweep_uniform_device(iodata, sop: SpaceOperator, omegas, excitations,
 sweep_uniform_device._last_info = None
 
 
+def _rhs(sop: SpaceOperator, ex: int, omega: float,
+         rhs1: Optional[np.ndarray] = None) -> np.ndarray:
+    """b(omega) = i omega rhs1 (+ the wave-port RHS2 of excitation ex)."""
+    b = 1j * omega * (sop.rhs1(ex) if rhs1 is None else rhs1)
+    if sop.wave_ports:
+        b = b + sop.waveport_rhs2(ex, omega)
+    return b
+
+
+def _system(sop: SpaceOperator, omega: float, KCM):
+    """A(omega) = K + i omega C - omega^2 M + A2(omega), PEC eliminated."""
+    A = sop.system_csr(omega, *KCM)
+    A2 = sop.a2_csr(omega)
+    return A if A2 is None else (A + A2).tocsr()
+
+
 def _direct_resolve_columns(iodata, sop: SpaceOperator, omegas, cols
                             ) -> Dict[Tuple[int, int], np.ndarray]:
     """Sparse-direct re-solve of specific (excitation, frequency-index)
     columns (one factorization per distinct omega)."""
     from palace_torch.linalg.ordering import dof_coordinates, splu_nd
 
-    K, C, M = sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr()
+    KCM = (sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr())
     coords = dof_coordinates(sop.space)
     by_freq: Dict[int, list] = {}
     for ex, i in cols:
@@ -393,9 +429,9 @@ def _direct_resolve_columns(iodata, sop: SpaceOperator, omegas, cols
     out: Dict[Tuple[int, int], np.ndarray] = {}
     for i, ex_list in sorted(by_freq.items()):
         omega = omegas[i]
-        lu = splu_nd(sop.system_csr(omega, K, C, M), coords)
+        lu = splu_nd(_system(sop, omega, KCM), coords)
         for ex in ex_list:
-            out[(ex, i)] = lu.solve(1j * omega * sop.rhs1(ex))
+            out[(ex, i)] = lu.solve(_rhs(sop, ex, omega))
     return out
 
 
@@ -405,7 +441,7 @@ def sweep_uniform_direct(iodata, sop: SpaceOperator, omegas, excitations,
     factorization per frequency, reused across excitations."""
     from palace_torch.linalg.ordering import dof_coordinates, splu_nd
 
-    K, C, M = sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr()
+    KCM = (sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr())
     rhs1 = {ex: sop.rhs1(ex) for ex in excitations}
     coords = dof_coordinates(sop.space)
     ex_list = list(excitations)
@@ -415,10 +451,10 @@ def sweep_uniform_direct(iodata, sop: SpaceOperator, omegas, excitations,
         todo = [ex for k, ex in enumerate(ex_list) if k * nfreq + i >= skip]
         if not todo:
             continue
-        A = sop.system_csr(omega, K, C, M)
+        A = _system(sop, omega, KCM)
         lu = splu_nd(A, coords)
         for ex in todo:
-            sols[(ex, i)] = lu.solve(1j * omega * rhs1[ex])
+            sols[(ex, i)] = lu.solve(_rhs(sop, ex, omega, rhs1[ex]))
         print_log(iodata, f"  freq {i + 1}/{len(omegas)} solved "
                           f"({A.shape[0]} dofs x {len(todo)} excitations)")
     return sols
@@ -430,7 +466,7 @@ def sweep_uniform_direct(iodata, sop: SpaceOperator, omegas, excitations,
 
 def write_driven_tables(iodata: IoData, sop: SpaceOperator, post_dir: str,
                         freqs_ghz, excitations, meas):
-    """port-S, port-V, port-I, domain-E and probe-E/B tables."""
+    """port-S, port-V, port-I, port-Z, domain-E and probe-E/B tables."""
     units = iodata.units
     multi = len(excitations) > 1
 
@@ -441,12 +477,14 @@ def write_driven_tables(iodata: IoData, sop: SpaceOperator, post_dir: str,
     A = units.scale_factor(ValueType.CURRENT)
     J = units.scale_factor(ValueType.ENERGY)
 
-    # port-S: columns S[observation][drive-port].
-    all_ports = sorted(sop.ports)
+    # port-S: columns S[observation][drive-port], over lumped and wave
+    # ports.
+    all_ports = sorted(list(sop.ports) + list(sop.wave_ports))
     t = Table()
     fc = t.add(freq_col())
     for ex in excitations:
-        drive = [j for j, p in sop.ports.items() if p.excitation == ex]
+        drive = [j for j, p in sop.ports.items() if p.excitation == ex] + \
+                [j for j, p in sop.wave_ports.items() if p.excitation == ex]
         dsfx = f"[{drive[0]}]" if len(drive) == 1 else f"[{ex}]"
         for idx in all_ports:
             t.add(Column(f"smag{idx}{ex}", f"|S[{idx}]{dsfx}| (dB)"))
@@ -462,7 +500,10 @@ def write_driven_tables(iodata: IoData, sop: SpaceOperator, post_dir: str,
                     math.degrees(math.atan2(S.imag, S.real)))
     t.write(os.path.join(post_dir, "port-S.csv"))
 
-    # port-V / port-I (lumped ports).
+    # port-V / port-I (lumped ports; wave ports with a VoltagePath get
+    # V_wp columns in port-V).
+    vwp_ports = [i for i, wp in sorted(sop.wave_ports.items())
+                 if getattr(wp.cfg, "voltage_path", None)]
     for name, unit, scale, inc_fn, get in () if not sop.ports else (
         ("V", "(V)", V, lambda p: p.excitation_voltage(), lambda pm: pm.V),
         ("I", "(A)", A,
@@ -478,6 +519,11 @@ def write_driven_tables(iodata: IoData, sop: SpaceOperator, post_dir: str,
             for idx in sop.ports:
                 t.add(Column(f"re{idx}{ex}", f"Re{{{name}[{idx}]{sfx}}} {unit}"))
                 t.add(Column(f"im{idx}{ex}", f"Im{{{name}[{idx}]{sfx}}} {unit}"))
+            for idx in vwp_ports if name == "V" else ():
+                t.add(Column(f"rew{idx}{ex}",
+                             f"Re{{V_wp[{idx}]{sfx}}} {unit}"))
+                t.add(Column(f"imw{idx}{ex}",
+                             f"Im{{V_wp[{idx}]{sfx}}} {unit}"))
         for i, f in enumerate(freqs_ghz):
             fc.data.append(f)
             for ex in excitations:
@@ -490,7 +536,42 @@ def write_driven_tables(iodata: IoData, sop: SpaceOperator, post_dir: str,
                     val = get(mm.ports[idx])
                     t.col(f"re{idx}{ex}").data.append(val.real * scale)
                     t.col(f"im{idx}{ex}").data.append(val.imag * scale)
+                for idx in vwp_ports if name == "V" else ():
+                    val = mm.ports[idx].V
+                    t.col(f"rew{idx}{ex}").data.append(val.real * scale)
+                    t.col(f"imw{idx}{ex}").data.append(val.imag * scale)
         t.write(os.path.join(post_dir, f"port-{name}.csv"))
+
+    # port-Z: wave-port impedances.  Z_PV[i] = V_exc V_exc* of the
+    # power-normalized mode; Z[i][ex] = V_wp V_wp* / P with P the full
+    # Poynting integral through the port (Re Z < 0 where power leaves).
+    if vwp_ports:
+        Ohm = units.scale_factor(ValueType.IMPEDANCE)
+        t = Table()
+        fc = t.add(freq_col())
+        for idx in vwp_ports:
+            t.add(Column(f"zpvr{idx}", f"Re{{Z_PV[{idx}]}} (Ohm)"))
+            t.add(Column(f"zpvi{idx}", f"Im{{Z_PV[{idx}]}} (Ohm)"))
+        for ex in excitations:
+            sfx = f"[{ex}]" if multi else ""
+            for idx in vwp_ports:
+                t.add(Column(f"zr{idx}{ex}", f"Re{{Z[{idx}]{sfx}}} (Ohm)"))
+                t.add(Column(f"zi{idx}{ex}", f"Im{{Z[{idx}]{sfx}}} (Ohm)"))
+        ex0 = next(iter(excitations))
+        for i, f in enumerate(freqs_ghz):
+            fc.data.append(f)
+            for idx in vwp_ports:
+                zpv = meas[(ex0, i)].ports[idx].Z_PV * Ohm
+                t.col(f"zpvr{idx}").data.append(zpv.real)
+                t.col(f"zpvi{idx}").data.append(zpv.imag)
+            for ex in excitations:
+                for idx in vwp_ports:
+                    pm = meas[(ex, i)].ports[idx]
+                    Zv = (pm.V * np.conj(pm.V) / pm.P * Ohm
+                          if abs(pm.P) > 0 else 0.0 + 0.0j)
+                    t.col(f"zr{idx}{ex}").data.append(Zv.real)
+                    t.col(f"zi{idx}{ex}").data.append(Zv.imag)
+        t.write(os.path.join(post_dir, "port-Z.csv"))
 
     # domain-E
     t = Table()

@@ -19,13 +19,24 @@ device FGMRES + p-MG solver (`BlockedDeviceSolver`, `max_block=1`, sample
 frequencies added by `add_omega`), whose structured fine level launches the
 natural-layout structured-apply kernel.
 
+Wave ports enter through the factored form of their contribution,
+A_wp(omega) = i sum_p Re kn_p(omega) Mwp_p with constant PEC-eliminated
+boundary masses Mwp_p: the reduced projections Wr_p = V^H Mwp_p V are
+updated with the basis, and the online dense solve only evaluates the
+scalar Re kn_p(omega) (reference: romoperator.hpp:177-187); the excitation
+adds the projected wave-port RHS2.  The finite-conductivity (~ sqrt(omega))
+and second-order absorbing (~ 1/omega) terms do not factor this way: they
+are re-assembled and re-projected at every evaluation frequency (the slow
+path, romoperator.hpp:186-189), and with them every HDM solve is sparse
+direct, as in palace_tpu.  That is a route, not a fallback: the provenance
+records it as `prom_hdm_path = "direct-slow-a2"` ("device" or "direct"
+otherwise).
+
 Deliberate divergence from the JAX package: an exception raised while
 building or running the device solver propagates; there is no quiet
 sparse-direct HDM path behind it.  A device solve left above
 max(100 Tol, 1e-8) is re-solved sparse-direct (numerics, counted in
-provenance as `prom_hdm_direct_fallbacks`).  Wave ports and the
-non-factorable A2(omega) terms (Conductivity, second-order Absorbing) are
-refused by `SpaceOperator`, so their PROM branches come with those terms.
+provenance as `prom_hdm_direct_fallbacks`).
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import numpy as np
 
 from palace_torch.drivers.common import print_log
 from palace_torch.models.spaceoperator import SpaceOperator
+from palace_torch.ops.partial import signed_tables
 from palace_torch.utils import provenance
 
 
@@ -163,25 +175,37 @@ def _print_prom_matrices(iodata, sop, post_dir, V, labels, orth_R,
     write(R.real, "rom-orthogonalization-matrix-R.csv")
 
 
-def _reduced_tables(V, K, C, M, rhs1):
-    """(Vm, V^H K V, V^H C V or None, V^H M V, {ex: V^H b1}) of the basis
-    (host scipy products over the whole basis, as the reference recomputes
-    them at every greedy iteration)."""
+def _reduced_tables(V, K, C, M, rhs1, Mwp):
+    """(Vm, V^H K V, V^H C V or None, V^H M V, {port: V^H Mwp V},
+    {ex: V^H b1}) of the basis (host scipy products over the whole basis,
+    as the reference recomputes them at every greedy iteration)."""
     Vm = np.stack(V, axis=1)  # (n, m)
     Kr = Vm.conj().T @ (K @ Vm)
     Cr = Vm.conj().T @ (C @ Vm) if C is not None else None
     Mr = Vm.conj().T @ (M @ Vm)
+    Wr = {idx: Vm.conj().T @ (Mp @ Vm) for idx, Mp in Mwp.items()}
     b1r = {ex: Vm.conj().T @ b for ex, b in rhs1.items()}
-    return Vm, Kr, Cr, Mr, b1r
+    return Vm, Kr, Cr, Mr, Wr, b1r
 
 
-def _prom_solve(om, ex, tabs):
-    """Reduced coefficients z of (V^H A(om) V) z = V^H b(om)."""
-    Vm, Kr, Cr, Mr, b1r = tabs
+def _prom_solve(om, ex, tabs, kn, a2_extra, rhs2):
+    """Reduced coefficients z of (V^H A(om) V) z = V^H b(om); `kn(port, om)`
+    is Re kn of a wave port, `a2_extra(om)` the non-factorable A2 CSR (or
+    None), `rhs2(ex, om)` the wave-port RHS2 (or None)."""
+    Vm, Kr, Cr, Mr, Wr, b1r = tabs
     Ar = Kr - om * om * Mr
     if Cr is not None:
         Ar = Ar + 1j * om * Cr
-    return np.linalg.solve(Ar, 1j * om * b1r[ex])
+    for idx, W in Wr.items():
+        Ar = Ar + 1j * kn(idx, om) * W
+    X = a2_extra(om)
+    if X is not None:
+        Ar = Ar + Vm.conj().T @ (X @ Vm)  # slow path: project per omega
+    br = 1j * om * b1r[ex]
+    b2 = rhs2(ex, om)
+    if b2 is not None:
+        br = br + Vm.conj().T @ b2
+    return np.linalg.solve(Ar, br)
 
 
 @dataclass
@@ -207,7 +231,7 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
                    ) -> Dict[Tuple[int, int], np.ndarray]:
     """The PROM's solution at every (excitation, frequency index); what the
     greedy loop did goes into `report`."""
-    from palace_torch.drivers.driven import use_device_ksp
+    from palace_torch.drivers.driven import _rhs, _system, use_device_ksp
     from palace_torch.linalg.ordering import dof_coordinates, splu_nd
 
     cfg = iodata.solver.driven
@@ -221,15 +245,48 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
     coords = dof_coordinates(sop.space)
     rhs1 = {ex: sop.rhs1(ex).astype(complex) for ex in excitations}
     free_mask = ~sop.ess_mask
+    wave_ports = {idx: wp for idx, wp in sop.wave_ports.items() if wp.active}
+    Mwp = {idx: sop._free_csr(signed_tables([sop._waveport_mass_bucket(idx)]))
+           for idx in wave_ports}
+
+    def kn(idx, omega):
+        # Re kn only, as in the uniform sweep's term (the reference ROM's
+        # GetWavePortKn -> kn0.real(), romoperator.cpp:889).
+        return float(wave_ports[idx].solve_mode(omega).kn.real)
+
+    def rhs2(ex, omega):
+        return sop.waveport_rhs2(ex, omega) if sop.wave_ports else None
+
+    # Non-factorable A2(omega) terms, re-assembled per frequency (cached).
+    has_slow_a2 = bool(sop._conductivity) or sop._abc2_tb is not None
+    a2_cache: Dict[float, object] = {}
+
+    def a2_extra(omega):
+        if not has_slow_a2:
+            return None
+        key = float(omega)
+        if key not in a2_cache:
+            parts = [X for X in (sop.conductivity_a2_csr(omega),
+                                 sop.abc2_a2_csr(omega)) if X is not None]
+            a2_cache[key] = sum(parts[1:], parts[0]).tocsr()
+        return a2_cache[key]
 
     def rhs(ex, omega):
-        return 1j * omega * rhs1[ex]
+        return _rhs(sop, ex, omega, rhs1[ex])
+
+    def prom_solve(om, ex, tabs):
+        return _prom_solve(om, ex, tabs, kn, a2_extra, rhs2)
 
     # Greedy HDM solves: the device FGMRES + p-MG solver with lazily added
-    # sample frequencies (add_omega), built at the first sample.
+    # sample frequencies (add_omega), built at the first sample; with the
+    # slow A2 terms, sparse direct.
     omega_idx: Dict[float, int] = {}
     lin = iodata.solver.linear
-    device_hdm = use_device_ksp(iodata, sop.space.num_dofs)
+    if has_slow_a2:
+        hdm_path = "direct-slow-a2"
+    else:
+        hdm_path = ("device" if use_device_ksp(iodata, sop.space.num_dofs)
+                    else "direct")
 
     def device_solver():
         if report.solver is None:
@@ -248,9 +305,8 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
 
     def solve_hdm(omega, ex):
         provenance.record("solver_path", "prom-adaptive")
-        provenance.record("prom_hdm_path",
-                          "device" if device_hdm else "direct")
-        if device_hdm:
+        provenance.record("prom_hdm_path", hdm_path)
+        if hdm_path == "device":
             solver = device_solver()
             if omega not in omega_idx:
                 omega_idx[omega] = solver.add_omega(omega)
@@ -266,8 +322,8 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
             print_log(iodata, "  PROM: device HDM solve not converged; "
                               "sparse-direct fallback for this sample")
             provenance.add("prom_hdm_direct_fallbacks", 1)
-        lu = splu_nd(sop.system_csr(omega, K, C, M).tocsc(), coords)
-        return lu.solve(rhs(ex, omega))
+        A = _system(sop, omega, (K, C, M)).tocsc()
+        return splu_nd(A, coords).solve(rhs(ex, omega))
 
     V: List[np.ndarray] = []
     labels: List[str] = []
@@ -316,8 +372,8 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
             om_star = mri.find_max_error()
             E = report.hdm[(ex, om_star)] = solve_hdm(om_star, ex)
             total_hdm += 1
-            tabs = _reduced_tables(V, K, C, M, rhs1)
-            z = _prom_solve(om_star, ex, tabs)
+            tabs = _reduced_tables(V, K, C, M, rhs1, Mwp)
+            z = prom_solve(om_star, ex, tabs)
             err = (np.linalg.norm(tabs[0] @ z - E)
                    / max(np.linalg.norm(E), 1e-300))
             report.samples.append((ex, om_star, float(err)))
@@ -340,13 +396,13 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
                              n_port_modes, K, C, M)
 
     # Online sweep.
-    tabs = _reduced_tables(V, K, C, M, rhs1)
+    tabs = _reduced_tables(V, K, C, M, rhs1, Mwp)
     Vm = tabs[0]
     report.basis_size = len(V)
     sols = {}
     for i, om in enumerate(omegas):
         for ex in excitations:
-            sols[(ex, i)] = Vm @ _prom_solve(om, ex, tabs)
+            sols[(ex, i)] = Vm @ prom_solve(om, ex, tabs)
     print_log(iodata, f"  PROM online: {len(omegas)} frequencies x "
                       f"{len(excitations)} excitations (basis {len(V)}, "
                       f"{total_hdm} HDM solves)")

@@ -47,9 +47,15 @@ def _check_unported(iodata: IoData):
                         and b.absorbing.order > 1):
         unported("The nonlinear eigenproblem (wave ports, second-order "
                  "absorbing boundaries)", "nonlinear eigenmode")
+    if b.conductivities:
+        # As in palace_tpu (and the reference for non-PEP solvers).
+        raise NotImplementedError(
+            "conductivity boundaries make the eigenproblem nonlinear in "
+            "omega (reference rejects this for non-PEP solvers too)")
     if b.floquet_ports or (b.floquet_wave_vector is not None and
                            np.linalg.norm(b.floquet_wave_vector) > 0):
-        unported("Floquet terms of the eigenproblem", "Floquet eigenmode")
+        unported("Floquet terms of the eigenproblem",
+                 "Floquet ports and Floquet eigenmode")
     if b.surface_fluxes or b.dielectrics or (b.farfield is not None
                                              and b.farfield.attributes):
         unported("SurfaceFlux / Dielectric / FarField tables of the "

@@ -163,7 +163,8 @@ def curl_flux_indicators(space: NDSpace, materials, E: np.ndarray,
     eta_K^2 = int_K (curl E - mu F)^T mu^-1 (curl E - mu F)."""
     mesh = space.mesh
     if floquet_k is not None:
-        unported("Floquet-corrected indicators", "wave and Floquet ports")
+        unported("Floquet-corrected indicators",
+                 "Floquet ports and Floquet eigenmode")
     if mesh.nodes.shape[1] != 3:
         unported("2D indicators", "2D meshes")
     signs_list = getattr(space, "elem_signs", [None] * len(mesh.buckets))

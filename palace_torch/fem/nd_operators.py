@@ -19,7 +19,6 @@ from palace_torch.fem.nd import NDSpace
 from palace_torch.fem.operators import _per_elem_tensor, default_qorder
 from palace_torch.mesh import geometry
 from palace_torch.ops.partial import BucketTables, PAOperator
-from palace_torch.utils import unported
 
 
 def _planar_sandwich(Ap, C, right_p, wscale):
@@ -61,12 +60,12 @@ def nd_operator(
     mass_coef: Optional[Dict[int, np.ndarray]] = None,
     device: torch.device = torch.device("cpu"),
 ) -> PAOperator:
-    """(nu curl u, curl v) + (eps u, v) on a 3D ND space, as dense
-    per-element matrices."""
+    """(nu curl u, curl v) + (eps u, v) on an ND space, as dense
+    per-element matrices.  On a 2D mesh (a wave port's cross-section) the
+    curl is the scalar out-of-plane component and its coefficient the zz
+    entry of each 3x3 `curl_coef` tensor."""
     mesh = space.mesh
     sdim = mesh.nodes.shape[1]
-    if sdim != 3:
-        unported("2D H(curl) forms", "2D meshes")
     signs_list = getattr(space, "elem_signs", [None] * len(mesh.buckets))
     buckets: List[BucketTables] = []
     for b, ed, sg in zip(mesh.buckets, space.elem_dofs, signs_list):
@@ -80,10 +79,23 @@ def nd_operator(
             Wm = _planar_sandwich(gf.Jinvp, Cm, gf.Jinvp, gf.wdetJ)
             A = _assemble(V, Wm)
         if curl_coef is not None:
-            Cc = _per_elem_tensor(curl_coef, b.attr, sdim)
-            JT = gf.Jp.transpose(1, 0, 2, 3)  # (r, s, E, nq)
-            wsc = gf.w[None, :] / np.abs(gf.detJ)
-            Wc = _planar_sandwich(JT, Cc, JT, wsc)
+            if sdim == 3:
+                Cc = _per_elem_tensor(curl_coef, b.attr, sdim)
+                JT = gf.Jp.transpose(1, 0, 2, 3)  # (r, s, E, nq)
+                wsc = gf.w[None, :] / np.abs(gf.detJ)
+                Wc = _planar_sandwich(JT, Cc, JT, wsc)
+            else:
+                # 2D: (w / |detJ|) nu_zz, read before any in-plane
+                # truncation.
+                uniq = np.unique(b.attr)
+                lut = np.zeros(int(uniq.max()) + 1)
+                for a in uniq:
+                    t = np.asarray(curl_coef[int(a)], float)
+                    lut[int(a)] = (float(t) if t.ndim == 0 else
+                                   float(t[2, 2]) if t.shape[0] > 2 else
+                                   float(t[0, 0]))
+                Wc = (gf.w[None, :] / np.abs(gf.detJ)
+                      * lut[b.attr][:, None])[None, None]
             Ac = _assemble(C, Wc)
             A = Ac if A is None else A + Ac
         buckets.append(BucketTables(gidx=ed, A=A, signs=sg))

@@ -369,6 +369,13 @@ class BlockedDeviceSolver:
                 Bg = sum(bcoefs[t] * aux_csrs_all[li][t] for t in range(T))
                 aux_lmax[li] = _lmax_est(Bg, self._levels[li]["aux_ess"])
         A = sum(coefs[t] * csrs[-1][t] for t in range(T))
+        if L == 1:
+            # A one-level hierarchy (Order 1) factors the fine operator
+            # itself, whose term CSRs keep their PEC rows and columns:
+            # eliminate them as the fine apply does (palace_tpu does not,
+            # and its FGMRES stalls there; ROADMAP.md, section 3).
+            free = sp.diags((~ess_masks[-1]).astype(float))
+            A = free @ A @ free
         A = A + sp.diags(ess_masks[-1].astype(float))
         self._coarse_lus.append(splu(A.tocsc()))
         self._coefs_all = np.concatenate([self._coefs_all, coefs[:, None]], 1)

@@ -3,10 +3,15 @@ palace_tpu/models/spaceoperator.py for the driven sweep).
 
 Builds the K (curl-curl + inductive boundary), C (resistive/absorbing
 boundary) and M (permittivity + capacitive boundary) operators, PEC essential
-dofs, the lumped-port / surface-current / current-dipole excitation, and the
-driven system A(omega) = K + i omega C - omega^2 M, both as host scipy CSRs
-(sparse-direct path) and as constant real terms with complex coefficients
-(device solver).  Domain operators are `PAOperator`s on the run's device.
+dofs, the lumped-port / wave-port / surface-current / current-dipole
+excitation, and the driven system A(omega) = K + i omega C - omega^2 M +
+A2(omega), both as host scipy CSRs (sparse-direct path) and as constant real
+terms with complex coefficients (device solver).  A2(omega) holds the
+frequency-dependent boundary terms: wave ports (i Re kn(omega) times a
+mu^-1 boundary mass), finite-conductivity surfaces (i omega / Z_s(omega)
+times a boundary mass) and the second-order absorbing surface-curl term
+(i / (2 omega) times its curl bucket).  Domain operators are `PAOperator`s
+on the run's device.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from palace_torch.config import IoData, ValueType
 from palace_torch.fem.evaluation import boundary_trace
 from palace_torch.fem.nd import NDSpace
 from palace_torch.fem.nd_boundary import (
-    NDTraceBasis, boundary_mass_bucket, boundary_rhs, nd_trace_basis,
+    NDTraceBasis, boundary_curl_bucket, boundary_mass_bucket, boundary_rhs,
+    nd_trace_basis,
 )
 from palace_torch.fem.nd_operators import nd_operator
 from palace_torch.fem.operators import default_qorder
@@ -42,24 +48,33 @@ def _matsqrt(A: np.ndarray) -> np.ndarray:
     return (V * np.sqrt(np.maximum(w, 0.0))) @ V.T
 
 
+def _conductivity_coef(omega: float, sigma: float, mu: float, h: float
+                       ) -> complex:
+    """i omega / Z_s(omega) of a finite-conductivity surface: Z_s =
+    (1 + i) / (sigma delta), delta = sqrt(2 / (mu sigma omega)), with the
+    finite-thickness factors (sinh v +/- sin v) / (cosh v - cos v),
+    v = h / delta (reference: surfaceconductivityoperator.cpp:148-175, after
+    the Ansys HFSS finite-thickness surface impedance model)."""
+    delta = math.sqrt(2.0 / (mu * sigma * omega))
+    zre = zim = 1.0 / (sigma * delta)
+    if h > 0.0:
+        nu = h / delta
+        den = math.cosh(nu) - math.cos(nu)
+        zre *= (math.sinh(nu) + math.sin(nu)) / den
+        zim *= (math.sinh(nu) - math.sin(nu)) / den
+    return 1.0j * omega / complex(zre, zim)
+
+
 class SpaceOperator:
     """System operators for the driven sweep, domain tables on `device`."""
 
     def __init__(self, iodata: IoData, mesh: Mesh,
                  device: torch.device = torch.device("cpu")):
         b = iodata.boundaries
-        if b.wave_ports:
-            unported("WavePort", "wave and Floquet ports")
         if b.floquet_ports or (b.floquet_wave_vector is not None and
                                np.linalg.norm(b.floquet_wave_vector) > 0):
             unported("Floquet ports / FloquetWaveVector",
-                      "wave and Floquet ports")
-        if b.conductivities:
-            unported("Conductivity boundaries", "frequency-dependent boundaries")
-        if b.absorbing is not None and b.absorbing.attributes \
-                and b.absorbing.order > 1:
-            unported("second-order Absorbing boundaries",
-                      "frequency-dependent boundaries")
+                     "Floquet ports and Floquet eigenmode")
         if mesh.nodes.shape[1] != 3:
             unported("2D meshes", "2D meshes")
         canonicalize_simplices(mesh)
@@ -114,6 +129,24 @@ class SpaceOperator:
                 tbs.append(nd_trace_basis(self.space, boundary_trace(
                     mesh, attrs, self.bdr_qorder)))
             self._surface_currents.append((sc, elems, tbs))
+
+        # Wave ports (reference: palace/models/waveportoperator.cpp).  Other
+        # wave ports' surfaces are Dirichlet for this port's mode problem
+        # (their shared edges carry E_t = 0; waveportoperator.cpp:1083-1131).
+        self.wave_ports: Dict[int, object] = {}
+        self._wp_trace_bases: Dict[int, NDTraceBasis] = {}
+        if b.wave_ports:
+            from palace_torch.models.waveport import WavePortData
+
+            dbc = pec + list(b.wave_port_pec)
+            for wcfg in b.wave_ports:
+                other = [a for o in b.wave_ports if o.index != wcfg.index
+                         for a in o.attributes if a not in wcfg.attributes]
+                wp = WavePortData(iodata, mesh, wcfg, self.materials,
+                                  dbc + other)
+                self.wave_ports[wcfg.index] = wp
+                self._wp_trace_bases[wcfg.index] = nd_trace_basis(
+                    self.space, wp.trace)
 
     # -- assembly -----------------------------------------------------------
 
@@ -187,10 +220,29 @@ class SpaceOperator:
             if abs(Cs) > 0:
                 add(self.M_bdr, imp.attributes, Cs)
 
+        # Finite-conductivity (skin-depth) surfaces: a unit boundary mass
+        # each, scaled per frequency by i omega / Z_s(omega) (reference:
+        # surfaceconductivityoperator.cpp:148-175).
+        self._conductivity: List[tuple] = []
+        for cd in iod.boundaries.conductivities:
+            sigma = cd.sigma / units.scale_factor(ValueType.CONDUCTIVITY)
+            h = cd.h / units.mesh_length_scale
+            if cd.external:
+                # External surfaces see twice the effective thickness (the
+                # BC is applied on one side only).
+                h *= 2.0
+            tr = boundary_trace(mesh, cd.attributes, self.bdr_qorder)
+            bk = boundary_mass_bucket(nd_trace_basis(self.space, tr),
+                                      np.ones(len(tr.elem)))
+            self._conductivity.append((bk, sigma, cd.mu_r, h))
+
         ab = iod.boundaries.absorbing
+        self._abc2_tb = None
         if ab is not None and ab.attributes:
             tr = boundary_trace(mesh, ab.attributes, self.bdr_qorder)
-            tb = nd_trace_basis(self.space, tr)
+            tb = nd_trace_basis(self.space, tr, with_curl=ab.order > 1)
+            if ab.order > 1:
+                self._abc2_tb = tb
             # invz0 = sqrt(mu^-1 eps) of the adjacent material.
             invz = {a: _matsqrt(self.materials.inv_permeability[a]
                                 @ self.materials.permittivity[a])
@@ -251,6 +303,9 @@ class SpaceOperator:
         for idx, port in self.ports.items():
             if port.excitation:
                 out.setdefault(port.excitation, []).append(idx)
+        for idx, wp in self.wave_ports.items():
+            if wp.excitation:
+                out.setdefault(wp.excitation, []).append(idx)
         if not out and (self.iodata.domains.current_dipoles
                         or self.iodata.boundaries.surface_currents):
             out[1] = []
@@ -274,7 +329,112 @@ class SpaceOperator:
         if self.M_im is not None:
             terms.append(Term("M_im", self._combine(self.M_im, []),
                               coef=lambda w: -1.0j * (w * w)))
+        for idx, wp in self.wave_ports.items():
+            if wp.active:
+                terms.append(Term(
+                    f"waveport{idx}",
+                    self._combine(None, [self._waveport_mass_bucket(idx)]),
+                    coef=lambda w, wp=wp: 1.0j * wp.solve_mode(w).kn.real))
+        for si, (bk, sigma, mu, h) in enumerate(self._conductivity):
+            terms.append(Term(
+                f"conductivity{si}", self._combine(None, [bk]),
+                coef=lambda w, c=(sigma, mu, h): _conductivity_coef(w, *c)))
+        if self._abc2_tb is not None:
+            terms.append(Term("abc2",
+                              self._combine(None, [self._abc2_curl_bucket()]),
+                              coef=lambda w: 1.0j * 0.5 / w))
         return terms
+
+    # -- frequency-dependent boundary terms A2(omega) ------------------------
+
+    def _free_csr(self, tables) -> sp.csr_matrix:
+        """CSR of `tables` with the PEC rows and columns zeroed."""
+        free = sp.diags((~self.ess_mask).astype(float))
+        return (free @ self._csr(tables) @ free).tocsr()
+
+    def _waveport_mass_bucket(self, idx: int) -> BucketTables:
+        """mu^-1 boundary mass on the wave-port surface (frequency
+        independent; the i Re kn(omega) scale lives in the coefficient)."""
+        tr = self._wp_trace_bases[idx].tr
+        muinv = self.materials.attr_tensor(self.materials.inv_permeability,
+                                           self._trace_attrs(tr))
+        return boundary_mass_bucket(self._wp_trace_bases[idx], muinv)
+
+    def _abc2_curl_bucket(self) -> BucketTables:
+        """(mu^-1 c)_nn-weighted surface-curl bucket of the second-order
+        absorbing boundary, c = sqrt((mu eps)^-1) (the 1/omega scale lives
+        in the coefficient; reference: farfieldboundaryoperator.cpp:109-140,
+        divergence term omitted as in the reference)."""
+        tr = self._abc2_tb.tr
+        coef = np.empty(len(tr.elem))
+        cache = {}
+        for k, a in enumerate(self._trace_attrs(tr)):
+            a = int(a)
+            if a not in cache:
+                mi = self.materials.inv_permeability[a]
+                eps = self.materials.permittivity[a]
+                cache[a] = mi @ _matsqrt(np.linalg.inv(np.linalg.inv(mi)
+                                                       @ eps))
+            nbar = tr.normal[k].mean(axis=0)
+            coef[k] = float(nbar @ cache[a] @ nbar)
+        return boundary_curl_bucket(self._abc2_tb, coef)
+
+    def waveport_a2_csr(self, omega: float) -> Optional[sp.csr_matrix]:
+        """sum over active ports of i Re kn(omega) (mu^-1 u_t, v_t)."""
+        tables = [(bk.gidx, 1j * wp.solve_mode(omega).kn.real * bk.A)
+                  for bk, wp in ((self._waveport_mass_bucket(idx), wp)
+                                 for idx, wp in self.wave_ports.items()
+                                 if wp.active)]
+        return self._free_csr(tables) if tables else None
+
+    def conductivity_a2_csr(self, omega: float) -> Optional[sp.csr_matrix]:
+        """sum over Conductivity surfaces of i omega / Z_s(omega) times
+        their boundary mass."""
+        if not self._conductivity:
+            return None
+        return self._free_csr([(bk.gidx, _conductivity_coef(omega, *c) * bk.A)
+                               for bk, *c in self._conductivity])
+
+    def abc2_a2_csr(self, omega: float) -> Optional[sp.csr_matrix]:
+        """i (0.5 / omega) (mu^-1 c)_nn (n.curl u, n.curl v) on the
+        second-order absorbing surfaces."""
+        if self._abc2_tb is None:
+            return None
+        bk = self._abc2_curl_bucket()
+        return self._free_csr([(bk.gidx, 1j * (0.5 / omega) * bk.A)])
+
+    def a2_csr(self, omega: float) -> Optional[sp.csr_matrix]:
+        """A2(omega): the sum of the three terms above, or None."""
+        parts = [A for A in (self.waveport_a2_csr(omega),
+                             self.abc2_a2_csr(omega),
+                             self.conductivity_a2_csr(omega)) if A is not None]
+        return sum(parts[1:], parts[0]).tocsr() if parts else None
+
+    def waveport_rhs2(self, excitation_idx: int, omega: float) -> np.ndarray:
+        """RHS2 = -U_inc = 2 (-i omega) n x H_inc from the modal fields of
+        the ports this excitation drives."""
+        out = np.zeros(self.space.num_dofs, complex)
+        for idx, wp in self.wave_ports.items():
+            if wp.excitation != excitation_idx:
+                continue
+            s_field = wp.nxh_field(wp.solve_mode(omega), omega)
+            tb = self._wp_trace_bases[idx]
+            out += boundary_rhs(tb, 2.0 * omega * np.imag(s_field),
+                                self.space.num_dofs)
+            out += 1j * boundary_rhs(tb, -2.0 * omega * np.real(s_field),
+                                     self.space.num_dofs)
+        out[self.ess_mask] = 0.0
+        return out
+
+    def waveport_sparam(self, idx: int, E: np.ndarray, omega: float
+                        ) -> complex:
+        """Modal overlap S = -int conj(s_field) . E dS
+        (reference: waveportoperator.cpp:832-850)."""
+        wp = self.wave_ports[idx]
+        s_field = wp.nxh_field(wp.solve_mode(omega), omega)
+        sv = boundary_rhs(self._wp_trace_bases[idx], np.conj(s_field),
+                          self.space.num_dofs)
+        return complex(-np.dot(sv, E))
 
     def rhs1(self, excitation_idx: int) -> np.ndarray:
         """Real excitation vector -U_inc = 2 Hinc E_inc; the i omega factor is
@@ -378,17 +538,21 @@ class SpaceOperator:
     def port_power(self, idx: int, E: np.ndarray, omega: float) -> complex:
         """P = int (E x conj(H)) . n dS with H = mu^-1 B, B = -curl E/(i w),
         +n the direction of propagation into the domain."""
+        return complex(sum(self.port_power_trace(tb, E, omega)
+                           for tb in self._port_trace_bases[idx]))
+
+    def port_power_trace(self, tb: NDTraceBasis, E: np.ndarray, omega: float
+                         ) -> complex:
+        """P = int (E x conj(H)) . n dS over one trace (lumped-port element
+        or wave-port surface)."""
         from palace_torch.fem.evaluation import trace_nd
 
-        P = 0.0 + 0.0j
-        for tb in self._port_trace_bases[idx]:
-            tr = tb.tr
-            muinv = self.materials.attr_tensor(self.materials.inv_permeability,
-                                               self._trace_attrs(tr))
-            Ev = trace_nd(self.space, E, tr, which="value")  # (n, nq, sdim)
-            Bv = trace_nd(self.space, E, tr, which="curl") * (-1.0 / (1j * omega))
-            H = np.einsum("fst,fqt->fqs", muinv, Bv)
-            ExH = np.cross(Ev, np.conj(H))
-            # Trace normals point out of the domain; propagation is inward.
-            P += np.einsum("fq,fqs,fqs->", tr.wdetJ, ExH, -tr.normal)
-        return complex(P)
+        tr = tb.tr
+        muinv = self.materials.attr_tensor(self.materials.inv_permeability,
+                                           self._trace_attrs(tr))
+        Ev = trace_nd(self.space, E, tr, which="value")  # (n, nq, sdim)
+        Bv = trace_nd(self.space, E, tr, which="curl") * (-1.0 / (1j * omega))
+        H = np.einsum("fst,fqt->fqs", muinv, Bv)
+        ExH = np.cross(Ev, np.conj(H))
+        # Trace normals point out of the domain; propagation is inward.
+        return complex(np.einsum("fq,fqs,fqs->", tr.wdetJ, ExH, -tr.normal))

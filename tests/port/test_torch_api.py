@@ -14,7 +14,8 @@ import torch
 import palace_torch
 from palace_torch.__main__ import main as cli_main
 from palace_torch.cases import (write_adaptive_case, write_eigen_case,
-                                 write_rings_case, write_slice_case)
+                                 write_rings_case, write_slice_case,
+                                 write_waveguide_case)
 from palace_torch.config import IoData
 from palace_torch.device import resolve_device
 from palace_torch.drivers import driven
@@ -52,11 +53,15 @@ def _rings_ms(directory, h, order, **kw):
     return write_rings_case(directory, 4.0 * h, order, **kw)
 
 
+def _guide(directory, n, order, **kw):
+    return write_waveguide_case(directory, 2 * n, n, n, order, **kw)
+
+
 @pytest.mark.parametrize("writer", [write_slice_case, write_eigen_case,
                                     write_adaptive_case, _rings_es,
-                                    _rings_ms],
+                                    _rings_ms, _guide],
                          ids=["driven", "eigen", "adaptive", "electrostatic",
-                              "magnetostatic"])
+                              "magnetostatic", "waveguide"])
 def test_entry_points_default_to_the_gpu(tmp_path, writer):
     """The case writers and the port's schema pick the GPU unless asked for
     the CPU; without CUDA a run then refuses to start."""
@@ -103,17 +108,39 @@ def test_solver_routing(tmp_path):
 @pytest.mark.parametrize("feature,item", [
     ("amr", "driven and eigenmode AMR"),
     ("paraview", "surface, far-field and ParaView postprocessing"),
+    ("floquet", "Floquet ports and Floquet eigenmode"),
 ])
 def test_unported_features_name_roadmap_item(tmp_path, feature, item):
     iodata = IoData(write_slice_case(str(tmp_path), 2, 1, device="CPU",
                                      verbose=0))
     if feature == "amr":
         iodata.model.refinement.max_it = 1
+    elif feature == "floquet":
+        iodata.boundaries.floquet_wave_vector = [0.1, 0.0, 0.0]
     else:
         iodata.problem.output_formats.paraview = True
         iodata.solver.driven.save_freqs = [2.0]
     with pytest.raises(NotImplementedError, match=item):
         driven.solve(iodata, output_dir=str(tmp_path / "out"))
+
+
+@pytest.mark.parametrize("termination,term", [
+    ("waveport", "waveport2"), ("conductivity", "conductivity0"),
+    ("absorbing", "abc2")])
+def test_frequency_dependent_boundaries_are_ported(tmp_path, termination,
+                                                   term):
+    """Wave ports, Conductivity and second-order Absorbing boundaries no
+    longer raise: their driven configs build and carry their device-solver
+    terms (wave port 1 drives every case)."""
+    from palace_torch.drivers.common import prepare_mesh
+    from palace_torch.models.spaceoperator import SpaceOperator
+
+    iodata = IoData(write_waveguide_case(str(tmp_path), 2, 1, 1, 1,
+                                         termination=termination,
+                                         device="CPU", verbose=0))
+    names = [t.name for t in SpaceOperator(
+        iodata, prepare_mesh(iodata)).driven_terms()]
+    assert "waveport1" in names and term in names
 
 
 @pytest.mark.parametrize("ptype,item", [

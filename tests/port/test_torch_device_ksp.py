@@ -3,7 +3,8 @@ palace_tpu's BlockedDeviceSolver and sparse-direct sweep, on operators
 carried over bit-identically through palace_torch.interop and the port's own
 mesh and Nedelec space (same dof numbering).  Tolerance 1e-8
 relative per column (the solvers stop at Tol 1e-10; both take the same
-iteration counts)."""
+iteration counts).  And the port's one-level (Order 1) hierarchy, where it
+departs from palace_tpu, against its own sparse-direct sweep."""
 
 import json
 import math
@@ -108,3 +109,33 @@ def test_blocked_solver_matches_jax(tmp_path, case):
     c = np.array([t.coef(omegas[0]) for t in terms])
     Y_j = np.asarray(jsolver.apply_fine(c, X_d))
     assert _col_rel(tsolver.apply_fine(c, X_d), Y_j) < 1e-12
+
+
+def test_one_level_hierarchy_converges(tmp_path):
+    """Order 1 gives a one-level hierarchy, whose coarse factorization is
+    the fine operator with its PEC rows and columns eliminated (a
+    deliberate divergence: palace_tpu factors them uneliminated; built that
+    way, the port's FGMRES stalled, 420 iterations to relres 1e-7 on the
+    4 x 2 x 2 guide).
+    On the WR-90 guide's device sweep every column converges in one cycle
+    and matches the sparse-direct sweep of the same SpaceOperator."""
+    from palace_torch.cases import write_waveguide_case
+    from palace_torch.config import ValueType as TorchValueType
+    from palace_torch.drivers import driven
+    from palace_torch.models.spaceoperator import (
+        SpaceOperator as TorchSpaceOperator)
+
+    iodata = TorchIoData(write_waveguide_case(str(tmp_path), 6, 3, 2, 1,
+                                              tol=1e-12, device="CPU",
+                                              verbose=0))
+    sop = TorchSpaceOperator(iodata, torch_prepare_mesh(iodata))
+    fs = iodata.units.scale_factor(TorchValueType.FREQUENCY)
+    omegas = [2 * math.pi * f / fs for f in driven.driven_samples_ghz(iodata)]
+    ex = sop.excitations()
+    X = driven.sweep_uniform_device(iodata, sop, omegas, ex)
+    info = driven.sweep_uniform_device._last_info
+    assert max(info["col_relres"].values()) <= 1e-12
+    assert info["total_its"] == 30 * len(omegas)
+    Y = driven.sweep_uniform_direct(iodata, sop, omegas, ex)
+    for key, ref in Y.items():
+        assert np.linalg.norm(X[key] - ref) <= 1e-8 * np.linalg.norm(ref)

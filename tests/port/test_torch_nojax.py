@@ -8,8 +8,10 @@
 - At run time: in a fresh interpreter whose import system refuses those
   packages, every palace_torch module imports, the 3^3 driven slice case,
   the box-tet eigenmode case (host branch), a coarse rings magnetostatic
-  case and a hex electrostatic AMR pass (nonconforming refinement and its
-  host solve) run on the CPU, and neither package is in sys.modules at the
+  case, a hex electrostatic AMR pass (nonconforming refinement and its
+  host solve), the WR-90 guide between two wave ports (device solver) and
+  its adaptive sweep ended by a second-order absorbing boundary run on the
+  CPU, and neither package is in sys.modules at the
   end.  The eigenmode device branch runs
   under the same guard in test_torch_eigen.py."""
 
@@ -81,6 +83,16 @@ with open(os.path.join(amr, "case.json"), "w") as f:
 res = palace_torch.run(os.path.join(amr, "case.json"))
 assert res["amr_iterations"] == 1
 assert res["provenance"]["solver_path"] == "direct-nonconforming"
+from palace_torch.cases import write_waveguide_case
+
+res = palace_torch.run(write_waveguide_case(
+    os.path.join(sys.argv[1], "guide"), 6, 3, 2, 1, device="CPU", verbose=0))
+assert res["provenance"]["solver_path"] == "device"
+assert res["provenance"]["waveport1_deflation"]
+res = palace_torch.run(write_waveguide_case(
+    os.path.join(sys.argv[1], "guide_a"), 6, 3, 2, 1, termination="absorbing",
+    adaptive=True, device="CPU", verbose=0))
+assert res["provenance"]["prom_hdm_path"] == "direct-slow-a2"
 assert not any(k.split(".")[0] in REFUSED for k in sys.modules)
 print("NOJAX-OK")
 """
