@@ -13,8 +13,8 @@ result line):
      point has none;
   3. kernels against plain: both structured-apply kernels (natural channel
      order, carry-class order) against their plain PyTorch versions on the
-     card at small shapes and at p = 3, 16^3, 12^3 and 10^3, B = 16 (the
-     driven and eigen paths' shapes), float64 and float32; the first kernel
+     card at small shapes and at p = 3, 16^3, 12^3, 10^3 and 8^3, B = 16
+     (the driven and eigen paths' shapes), float64 and float32; the first kernel
      also at the adaptive path's p = 3, 10^3, B = 2, float64.  At those
      shapes: the CUDA-event
      medians of both kernels (one call each, host work included), both
@@ -23,15 +23,15 @@ result line):
      each kernel's achieved TFLOP/s (useful operations over its median) and
      share of the bound, and its device time alone (device_ms: 50 launches
      queued behind a sleeping kernel);
-  4. driven path: palace_torch.run on the driven slice case (12^3 hex box,
-     Order 3, 147,852 dofs, 8 frequencies, GMG, Tol 1e-8) on the GPU; checks
+  4. driven path: palace_torch.run on the driven slice case (10^3 hex box,
+     Order 3, 86,490 dofs, 8 frequencies, GMG, Tol 1e-8) on the GPU; checks
      the structured fine level engaged, the first kernel launched (and the
      second did not), every column converged, the host-recomputed residual
      of every column, and the written tables;
   5. driven card against host: the 4^3, Order 2 case on the GPU and on the
      CPU; domain-E.csv must agree to 1e-8;
-  6. eigenmode path: palace_torch.run on the eigenmode case (10^3 hex box,
-     Order 3, 86,490 dofs, 4 modes near 5 GHz, Tol 1e-8) on the GPU; checks
+  6. eigenmode path: palace_torch.run on the eigenmode case (8^3 hex box,
+     Order 3, 45,000 dofs, 4 modes near 5 GHz, Tol 1e-8) on the GPU; checks
      the device Lanczos branch and the structured fine level ran, the second
      kernel launched (and the first did not), the modes against the analytic
      cavity frequencies, every backward error, an independent host residual
@@ -77,7 +77,7 @@ result line):
      same box with terminal and ground on adjacent faces (the same element
      counts per iteration, terminal-C.csv within 1e-8);
  14. wave-port path: palace_torch.run on the WR-90 guide between two wave
-     ports (36 x 8 x 6 hexes, Order 3, 150,054 dofs, 8 frequencies
+     ports (24 x 8 x 6 hexes, Order 3, 100,338 dofs, 8 frequencies
      8.2-12.4 GHz, GMG, Tol 1e-8, port EigenTol 1e-12) on the GPU; checks
      the device solver ran every column (no direct re-solve) on the element
      fine level with the ports' gradient deflation and quadrant phase
@@ -88,12 +88,12 @@ result line):
      element fine level's apply (its device time at this shape, its bound
      and its calls in the run);
  15. wave-port adaptive path: the guide at 24 x 8 x 6 (100,338 dofs; its
-     depth cut from phase 14's 36 cells) swept in 0.05 GHz steps (85
-     frequencies, AdaptiveTol 1e-6, AdaptiveMemory 2); checks every greedy
+     phase 14's depth) swept in 0.1 GHz steps (43 frequencies; 85 at 0.05
+     GHz before the script needed the time), AdaptiveTol 1e-6,
+     AdaptiveMemory 2; checks every greedy
      HDM solve ran on the device solver (no direct re-solve), the loop
      stopped by AdaptiveMemory, every HDM relres and host residual, the
-     PROM's S against phase 14's at its 8 frequencies (1e-5, the
-     difference of the two depths included) and the PROM
+     PROM's S against phase 14's at its 8 frequencies (1e-5) and the PROM
      field against a fresh HDM solve at 3 frequencies (1e-4 relative);
  16. frequency-dependent boundaries: (a) the guide shorted by a copper
      Conductivity wall at phase 14's depth, 4 frequencies, on the GPU
@@ -105,8 +105,36 @@ result line):
      CPU: port-S.csv GPU against CPU within 1e-8, adaptive against uniform
      within 5e-6;
  17. wave ports, card against host: the guide at 9 x 4 x 3, Order 2 (GMG)
-     on the GPU and on the CPU; port-S.csv and domain-E.csv within 1e-8.
-Neither structured-apply kernel runs on phases 10-17 (element-mode
+     on the GPU and on the CPU; port-S.csv and domain-E.csv within 1e-8;
+ 18. damped eigenmode: palace_torch.run on the copper-walled WR-90
+     cavity (22.86 x 10.16 x 30 mm, Impedance Rs 0.02369 Ohm on all six
+     faces, 8 x 4 x 10 hexes, Order 3, 28,722 dofs, 2 modes near 8 GHz, Tol
+     1e-8) on the GPU; checks the quadratic JD path with its strong-damping
+     seed, TE101's Re f (1e-6) and Q (1e-4) against the analytic cavity and
+     wall-loss Q_c (palace_torch/cases.py:te10l_qc), every backward error,
+     an independent host residual of (K + lam C + lam^2 M) x, and the
+     written tables;
+ 19. nonlinear eigenmode: the WR-90 guide shorted at x = L and opened
+     through wave port 1 at x = 0 (18 x 4 x 3 hexes, Order 3, 20,055 dofs, 2
+     modes near 9 GHz, Tol 1e-8) on the GPU; checks both modes against the
+     1D fixed point k cot(k L) = -i beta(Re omega) (1e-4), the true
+     nonlinear backward error with A2 at each pair's Re omega (1e-6), the
+     port mode's gradient deflation and quadrant phase reference;
+ 20. AMR on tets with the device solvers (Linear Type GMG): the 1 x 0.8 x
+     0.6 cm PEC box cavity (box_tet 6^3, Order 2, MaxIts 2), its lowest
+     mode's (TE110) error
+     shrinking every pass (below 0.7 x the first pass's), every pass on
+     block Lanczos with the element fine level, the adapted meshes and the
+     iteration archive written; and the TEM box between two lumped ports
+     (box_tet 6^3, Order 2, MaxIts 1), every pass's column at Tol on the
+     device with no direct re-solve, iteration1/port-S.csv and the final
+     tables written; prints each pass's dofs, setup and solve time;
+ 21. eigen branches, card against host: the cavity at 4 x 2 x 5, Order 2,
+     the shorted guide at 9 x 4 x 3, Order 2, and the box's AMR at box_tet
+     3^3 with its interior nodes jittered (untied indicators), Order 1,
+     MaxIts 2, on the GPU and on the CPU: eig.csv Re f within
+     1e-8 and Im f within 1e-6 (relative), equal element counts per pass.
+Neither structured-apply kernel runs on phases 10-21 (element-mode
 operators and the element fine level, plain torch); the kernel record
 counts their launches there (0).
 The line before the last is the kernel JSON record; the last line is
@@ -130,20 +158,22 @@ import time
 #: p = 4 (39 n-tiles) runs the core's two-pass route; p <= 3 one pass.
 KERNEL_CASES = [(1, (3, 2, 4)), (2, (3, 2, 4)), (3, (3, 2, 4)),
                 (4, (3, 2, 4)), (4, (8, 8, 8)), (2, (24, 24, 24)),
-                (3, (10, 10, 10)), (3, (12, 12, 12)), (3, (16, 16, 16))]
+                (3, (8, 8, 8)), (3, (10, 10, 10)), (3, (12, 12, 12)),
+                (3, (16, 16, 16))]
 BATCH = 16  # B = 2F, F = 8 columns
 #: Uniform driven phase depth (cut from 16^3 so that the adaptive phases
-#: fit the time limit) and the dof counts at p = 3.
-DRIVEN_N = 12
+#: fit the time limit, and from 12^3 so that the damped, nonlinear and AMR
+#: eigen phases do) and the dof counts at p = 3.
+DRIVEN_N = 10
 #: Eigenmode phase depth (cut from 12^3 so that the wave-port phases fit
-#: the time limit).
-EIGEN_N = 10
-P3_DOFS = {10: 86490, 12: 147852, 16: 345744}
+#: the time limit, and from 10^3 for phases 18-21).
+EIGEN_N = 8
+P3_DOFS = {8: 45000, 10: 86490, 12: 147852, 16: 345744}
 #: The main-path shape of each kernel: the driven path runs the first
 #: kernel at DRIVEN_N^3, the eigenmode path the second at EIGEN_N^3.  Both
-#: kernels are timed at 10^3, 12^3 and 16^3.
+#: kernels are timed at 8^3, 10^3, 12^3 and 16^3.
 DRIVEN_SHAPE, EIGEN_SHAPE = (DRIVEN_N,) * 3, (EIGEN_N,) * 3
-TIMED_SHAPES = ((16, 16, 16), (12, 12, 12), (10, 10, 10))
+TIMED_SHAPES = ((16, 16, 16), (12, 12, 12), (10, 10, 10), (8, 8, 8))
 MAIN_P = 3
 #: The adaptive path (its depth cut from 12^3 so that the wave-port phases
 #: fit the time limit): one complex column per greedy HDM solve, so the
@@ -180,16 +210,22 @@ RINGS_ES_TPU_C = [[5.181174572026425e-16, -2.3796437526088713e-16],
                   [-2.3796437526088713e-16, 1.7534384774114701e-15]]
 RINGS_ES_TPU_NORM = 1.906768991038e-01
 #: The wave-port phases' WR-90 guide (palace_torch/cases.py): hexes along
-#: the guide, its width and its height, the order, and its ND dofs; the
-#: small guide of phases 16b and 17 (hexes and order).
-GUIDE_N, GUIDE_P, GUIDE_DOFS = (36, 8, 6), 3, 150054
+#: the guide, its width and its height, the order, and its ND dofs (phases
+#: 14-16a; cut from 36 cells along the guide, 150,054 dofs, so that the
+#: script fits its time limit: on the CPU, with the 4 x 3, Order 3
+#: cross-section, the S of 24 and 36 cells differ by 1.7e-6); the small
+#: guide of phases 16b and 17 (hexes and order).
+GUIDE_N, GUIDE_P, GUIDE_DOFS = (24, 8, 6), 3, 100338
 SMALL_GUIDE = (9, 4, 3, 2)
-#: Phase 15's guide, cut from phase 14's 36 cells along the guide so that
-#: the script fits its time limit, and its ND dofs.  Its S differs from
-#: phase 14's by the discretization along the guide: on the CPU, with the
-#: 4 x 3, Order 3 cross-section, 24 against 36 cells differ by 1.7e-6 (18
-#: cells by 1.0e-5).
-ADAPTIVE_GUIDE_N, ADAPTIVE_GUIDE_DOFS = (24, 8, 6), 100338
+#: Phase 15's guide (the depth of phase 14's, so its gate against phase
+#: 14's S compares equal depths).
+ADAPTIVE_GUIDE_N, ADAPTIVE_GUIDE_DOFS = GUIDE_N, GUIDE_DOFS
+#: Phase 15's output grid (GHz; the greedy loop samples its own fine grid,
+#: so the step sets only the online sweep and its postprocessing: 0.05
+#: GHz, 85 frequencies, until the script needed the time) and the grid
+#: frequencies where its PROM field is held against fresh HDM solves
+#: (between samples).
+ADAPTIVE_GUIDE_STEP, ADAPTIVE_GUIDE_CHECK = 0.1, (8.9, 10.6, 12.0)
 GUIDE_A, GUIDE_L = 22.86e-3, 60e-3  # m
 MU0, ETA0, COPPER_SIGMA = 1.25663706127e-6, 376.730313412, 5.8e7
 #: Phase 14's gates against the analytic TE10 line: ||S21| - 1|, |S11|,
@@ -199,6 +235,20 @@ MU0, ETA0, COPPER_SIGMA = 1.25663706127e-6, 376.730313412, 5.8e7
 #: the 8 x 6, Order 3 cross-section is within 3.2e-8
 #: (scripts/waveguide_reference.py).
 GUIDE_GATES = {"S21": 1e-6, "S11": 1e-6, "phase": 1e-4, "kn": 1e-6}
+#: Phase 18's copper-walled WR-90 cavity (hexes along a, b, d, and the
+#: order) and its ND dofs; phase 19's shorted guide (hexes along the guide,
+#: a and b, and the order) and its ND dofs; phase 21's small versions.
+CAVITY_CU, CAVITY_CU_DOFS = (8, 4, 10, 3), 28722
+GUIDE_EIGEN, GUIDE_EIGEN_DOFS = (18, 4, 3, 3), 20055
+SMALL_CAVITY_CU, SMALL_GUIDE_EIGEN = (4, 2, 5, 2), (9, 4, 3, 2)
+#: Phase 20's tet AMR cases (box_tet n^3, the order, and MaxIts of the
+#: eigen cases; the driven case's writer sets MaxIts 1) and phase 21's
+#: small eigen AMR case; the eigen cases' PEC box (cm: three different
+#: sides, so its lowest mode, TE110, is simple and the marking does not
+#: follow round-off as in a cube's degenerate mode) and that mode (GHz).
+AMR_EIGEN, AMR_DRIVEN, SMALL_AMR_EIGEN = (6, 2, 2), (6, 2), (3, 1, 2)
+AMR_BOX = (1.0, 0.8, 0.6)
+AMR_BOX_F = C0 / 2 * math.hypot(1 / AMR_BOX[0], 1 / AMR_BOX[1]) / 1e-2 / 1e9
 
 
 class SmokeFailure(Exception):
@@ -1425,16 +1475,17 @@ def phase_waveport(workdir: str):
 
 
 def phase_waveport_adaptive(workdir: str, S14):
-    """The guide's adaptive PROM sweep (85 frequencies) on the GPU, at
-    ADAPTIVE_GUIDE_N; its S is held against phase 14's (at GUIDE_N, so the
-    difference includes the discretization along the guide)."""
+    """The guide's adaptive PROM sweep (43 frequencies) on the GPU, at
+    ADAPTIVE_GUIDE_N; its S is held against phase 14's (at GUIDE_N, the
+    same depth)."""
     import numpy as np
 
     t_phase = time.perf_counter()
     tol = 1e-6  # the case's AdaptiveTol
     res, wall, peak, applies = _guide_run(
         workdir, "guide_adaptive", n=ADAPTIVE_GUIDE_N,
-        dofs=ADAPTIVE_GUIDE_DOFS, adaptive=True)
+        dofs=ADAPTIVE_GUIDE_DOFS, adaptive=True,
+        freq_step=ADAPTIVE_GUIDE_STEP)
     prov, prom, sop = res["provenance"], res["prom"], res["sop"]
     check(prov.get("solver_path") == "prom-adaptive"
           and prov.get("prom_hdm_path") == "device"
@@ -1458,8 +1509,9 @@ def phase_waveport_adaptive(workdir: str, S14):
         sdiff = max(sdiff, abs(m.ports[1].S - S11), abs(m.ports[2].S - S21))
     check(sdiff <= 1e-5, f"PROM S against phase 14's: {sdiff:.3e} > 1e-5")
     solver, errs = prom.solver, []
-    for f in (8.65, 10.35, 12.05):
+    for f in ADAPTIVE_GUIDE_CHECK:
         i = int(np.argmin(np.abs(freqs - f)))
+        check(abs(freqs[i] - f) <= 1e-9, f"{f} GHz is not on the PROM grid")
         om = res["omegas"][i]
         b = 1j * om * sop.rhs1(1) + sop.waveport_rhs2(1, om)
         X, info = solver.solve(b[:, None], omega_idx=[solver.add_omega(om)])
@@ -1468,8 +1520,9 @@ def phase_waveport_adaptive(workdir: str, S14):
         E = res["solutions"][(1, i)]
         errs.append(float(np.linalg.norm(E - X[:, 0])
                           / np.linalg.norm(X[:, 0])))
-    check(max(errs) <= 100 * tol, f"PROM against HDM at 8.65, 10.35, 12.05 "
-                                  f"GHz: {errs} > {100 * tol:.0e}")
+    check(max(errs) <= 100 * tol, f"PROM against HDM at "
+                                  f"{ADAPTIVE_GUIDE_CHECK} GHz: {errs} > "
+                                  f"{100 * tol:.0e}")
     for name in ("port-S.csv", "domain-E.csv", "error-indicators.csv"):
         _table(os.path.join(res["post_dir"], name))
     samples = ", ".join(f"{_ghz(sop, om):.6f} ({err:.2e})"
@@ -1483,7 +1536,8 @@ def phase_waveport_adaptive(workdir: str, S14):
           f"{sum(prom.hdm_iterations.values())}, max relres "
           f"{max(relres.values()):.3e}, host residual {resid:.3e}; S against "
           f"phase 14's {'x'.join(map(str, GUIDE_N))} guide {sdiff:.3e}; "
-          f"PROM vs fresh HDM at 8.65/10.35/12.05 GHz "
+          f"PROM vs fresh HDM at "
+          f"{'/'.join(map(str, ADAPTIVE_GUIDE_CHECK))} GHz "
           f"{', '.join(f'{e:.3e}' for e in errs)}; port mode solves "
           f"{prov.get('waveport_mode_solves')} in "
           f"{prov.get('waveport_mode_seconds', 0.0):.2f} s (host); "
@@ -1521,7 +1575,8 @@ def phase_boundaries(workdir: str):
                                - 1))
     check(worst <= 1e-2, f"short: 1 - |S11| against 1 - |Gamma| {worst:.3e}"
                          " > 1e-2")
-    line_a = (f"(a) copper short p={GUIDE_P}, {len(res['omegas'])} "
+    line_a = (f"(a) copper short {'x'.join(map(str, GUIDE_N))} "
+              f"p={GUIDE_P}, {len(res['omegas'])} "
               f"frequencies: terms {names}, max relres {relres:.3e}, host "
               f"residual {resid:.3e}, 1 - |S11| within {worst:.3e} of the "
               f"analytic 1 - |Gamma|, {applies} element applies, "
@@ -1586,6 +1641,259 @@ def phase_waveport_parity(workdir: str):
           f"{e:.3e}; phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _gpu_run(cfg: str, tag: str):
+    """One run of `cfg` on the GPU: (result, wall seconds, peak device
+    memory); checks neither structured kernel launched."""
+    import torch
+
+    import palace_torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = palace_torch.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    check(launches == (0, 0), f"{tag}: structured kernels launched "
+                              f"{launches} times")
+    return res, wall, torch.cuda.max_memory_allocated()
+
+
+def _pencil_bkwd(sop, x, omega, a2=None) -> float:
+    """Backward error of (K + A2 + lam C + lam^2 M) x, lam = i omega, on the
+    free rows, relative to (||K + A2|| + |lam| ||C|| + |lam|^2 ||M||) ||x||
+    (1-norms), from scipy's CSRs of the run's SpaceOperator."""
+    import numpy as np
+
+    K, C, M = sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr()
+    if a2 is not None:
+        K = (K + a2).tocsr()
+    lam = 1j * omega
+    r = K @ x + lam * lam * (M @ x)
+    nrm = abs(K).sum(axis=0).max() + abs(lam) ** 2 * abs(M).sum(axis=0).max()
+    if C is not None:
+        r = r + lam * (C @ x)
+        nrm += abs(lam) * abs(C).sum(axis=0).max()
+    free = ~sop.ess_mask
+    return float(np.linalg.norm(r[free]) / (nrm * np.linalg.norm(x)))
+
+
+def _omega(sop, f_ghz: complex) -> complex:
+    from palace_torch.config import ValueType
+
+    return 2 * math.pi * complex(f_ghz) / sop.iodata.units.scale_factor(
+        ValueType.FREQUENCY)
+
+
+def phase_eigen_damped(workdir: str):
+    """The copper-walled WR-90 cavity: the damped quadratic branch (host JD
+    with the strong-damping seed) at full width on the GPU."""
+    import numpy as np
+
+    from palace_torch.cases import (CAVITY_D, COPPER_RS, WR90_A, WR90_B,
+                                    te10l_qc, write_cavity_case)
+
+    t_phase = time.perf_counter()
+    q_c, f101 = te10l_qc(WR90_A * 1e-3, WR90_B * 1e-3, CAVITY_D * 1e-3,
+                         COPPER_RS)
+    f101 /= 1e9
+    res, wall, peak = _gpu_run(write_cavity_case(
+        os.path.join(workdir, "cavity_cu"), *CAVITY_CU, device="GPU",
+        verbose=0), "eigen-damped")
+    prov, sop = res["provenance"], res["sop"]
+    tol = sop.iodata.solver.eigenmode.tol
+    check(res["num_dofs"] == CAVITY_CU_DOFS,
+          f"eigen-damped: unexpected dof count {res['num_dofs']}")
+    check(prov.get("eigen_path") == "quadratic-jd"
+          and prov.get("jd_strong_seed") is True,
+          f"eigen-damped: path {prov.get('eigen_path')}, strong seed "
+          f"{prov.get('jd_strong_seed')}")
+    f = np.asarray(res["frequencies_ghz"])
+    Q = abs(f[0]) / (2 * f[0].imag)
+    ferr, qerr = abs(f[0].real / f101 - 1), abs(Q / q_c - 1)
+    check(ferr <= 1e-6, f"eigen-damped: TE101 Re f {f[0].real:.9f} GHz vs "
+                        f"{f101:.9f}: {ferr:.3e} > 1e-6")
+    check(qerr <= 1e-4, f"eigen-damped: Q {Q:.6f} vs Q_c {q_c:.6f}: "
+                        f"{qerr:.3e} > 1e-4")
+    bkwd = np.asarray(res["backward_errors"])
+    check(bkwd.max() <= tol, f"eigen-damped: backward errors {bkwd}")
+    resid = max(_pencil_bkwd(sop, res["modes"][:, i], _omega(sop, f[i]))
+                for i in range(len(f)))
+    check(resid <= 10 * tol, f"eigen-damped: host residual {resid:.3e} > "
+                             f"{10 * tol:.0e}")
+    for name in ("eig.csv", "domain-E.csv"):
+        _table(os.path.join(res["post_dir"], name))
+    shape = "x".join(map(str, CAVITY_CU[:3]))
+    print(f"[18 eigen damped] copper WR-90 cavity {shape} hex "
+          f"p={CAVITY_CU[3]}: {res['num_dofs']} dofs, "
+          f"f {', '.join(f'{v:.9f}' for v in f)} GHz; TE101 Re f error "
+          f"{ferr:.3e} (analytic {f101:.9f}), Q {Q:.6f} against Q_c "
+          f"{q_c:.6f} ({qerr:.3e}); max backward error {bkwd.max():.3e}, "
+          f"host residual {resid:.3e}; path {prov.get('eigen_path')}, JD "
+          f"attempts {prov.get('jd_attempts')}, strong seed "
+          f"{prov.get('jd_strong_seed')}, div-free {prov.get('divfree')}; "
+          f"{_durations(res['post_dir'])}, run {wall:.2f} s; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
+def phase_eigen_nonlinear(workdir: str):
+    """The WR-90 guide shorted at x = L and opened through wave port 1 at
+    x = 0: the nonlinear branch (Newton-interpolated A2, fixed-point
+    refinement) at full width on the GPU, against the 1D fixed point."""
+    import numpy as np
+
+    from palace_torch.cases import shorted_guide_mode, write_guide_eigen_case
+
+    t_phase = time.perf_counter()
+    roots = [shorted_guide_mode(g)[0] for g in (9.4, 11.4)]
+    res, wall, peak = _gpu_run(write_guide_eigen_case(
+        os.path.join(workdir, "guide_eigen"), *GUIDE_EIGEN, device="GPU",
+        verbose=0), "eigen-nonlinear")
+    prov, sop = res["provenance"], res["sop"]
+    check(res["num_dofs"] == GUIDE_EIGEN_DOFS,
+          f"eigen-nonlinear: unexpected dof count {res['num_dofs']}")
+    check(prov.get("waveport1_deflation"), "eigen-nonlinear: the port mode "
+                                           f"ran without its deflation {prov}")
+    phases = {sol.phase for sol in sop.wave_ports[1]._mode_cache.values()}
+    check(phases == {"quadrant"}, f"eigen-nonlinear: phase references "
+                                  f"{phases}")
+    f = np.asarray(res["frequencies_ghz"])
+    check(len(f) == 2, f"eigen-nonlinear: {len(f)} modes")
+    ferr = max(abs(x - r) / abs(r) for x, r in zip(f, roots))
+    check(ferr <= 1e-4, f"eigen-nonlinear: modes {f} vs the 1D fixed point "
+                        f"{roots}: {ferr:.3e} > 1e-4")
+    bkwd = 0.0
+    for i in range(len(f)):
+        om = _omega(sop, f[i])
+        bkwd = max(bkwd, _pencil_bkwd(sop, res["modes"][:, i], om,
+                                      sop.waveport_a2_csr(om.real)))
+    check(bkwd <= 1e-6, f"eigen-nonlinear: nonlinear backward error "
+                        f"{bkwd:.3e} > 1e-6")
+    for name in ("eig.csv", "domain-E.csv"):
+        _table(os.path.join(res["post_dir"], name))
+    print(f"[19 eigen nonlinear] shorted WR-90 guide "
+          f"{'x'.join(map(str, GUIDE_EIGEN[:3]))} hex p={GUIDE_EIGEN[3]} "
+          f"with wave port 1: {res['num_dofs']} dofs, f "
+          f"{', '.join(f'{v:.9f}' for v in f)} GHz against the 1D fixed "
+          f"point {', '.join(f'{v:.9f}' for v in roots)} (max |df| / |f| "
+          f"{ferr:.3e}); nonlinear backward error {bkwd:.3e}; path "
+          f"{prov.get('eigen_path')}, harvest rounds "
+          f"{prov.get('nonlinear_harvest_rounds')}, fixed-point iterations "
+          f"{prov.get('nonlinear_refine_iterations')}; port mode solves "
+          f"{prov.get('waveport_mode_solves')} in "
+          f"{prov.get('waveport_mode_seconds', 0.0):.2f} s (host); "
+          f"{_durations(res['post_dir'])}, run {wall:.2f} s; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
+def _passes(prov) -> str:
+    return "; ".join(
+        f"pass {i}: {p['elements']} elements, {p['dofs']} dofs, setup "
+        f"{p['setup_s']:.2f} s, solve {p['solve_s']:.2f} s"
+        for i, p in enumerate(prov["amr_passes"]))
+
+
+def phase_amr(workdir: str):
+    """Driven and eigenmode AMR on tets, every pass on the device solvers
+    (Linear Type GMG)."""
+    from palace_torch.cases import write_amr_driven_case, write_amr_eigen_case
+
+    t_phase = time.perf_counter()
+    n, p, its = AMR_EIGEN
+    res, wall, _ = _gpu_run(write_amr_eigen_case(
+        os.path.join(workdir, "amr_eigen"), n, p, size=AMR_BOX, max_its=its,
+        device="GPU", verbose=0), "amr-eigen-tet")
+    passes = res["provenance"]["amr_passes"]
+    check(len(passes) == its + 1, f"amr-eigen-tet: {len(passes)} passes")
+    check(all(q["eigen_path"] == "device-lanczos"
+              and q["fine_level"] == "element" for q in passes),
+          f"amr-eigen-tet: paths {passes}")
+    err = [abs(q["re_f_ghz"][0] - AMR_BOX_F) for q in passes]
+    check(all(b < a for a, b in zip(err, err[1:]))
+          and err[-1] < 0.7 * err[0],
+          f"amr-eigen-tet: errors against {AMR_BOX_F} GHz per pass {err}")
+    post = res["post_dir"]
+    for name in [f"amr-mesh-{i}.msh" for i in range(1, its + 1)] + [
+            f"iteration{its}", "eig.csv", "error-indicators.csv"]:
+        check(os.path.exists(os.path.join(post, name)),
+              f"amr-eigen-tet: missing {name}")
+    line_e = (f"amr-eigen-tet box_tet {n}^3 p={p}: f error per pass "
+              f"{', '.join(f'{e:.3e}' for e in err)} GHz (analytic "
+              f"{AMR_BOX_F:.6f}); {_passes(res['provenance'])}; run "
+              f"{wall:.2f} s")
+
+    n, p = AMR_DRIVEN
+    res, wall, _ = _gpu_run(write_amr_driven_case(
+        os.path.join(workdir, "amr_driven"), n, p, device="GPU", verbose=0),
+        "amr-driven-tet")
+    passes = res["provenance"]["amr_passes"]
+    iodata = res["sop"].iodata
+    tol, its = iodata.solver.linear.tol, iodata.model.refinement.max_it
+    check(len(passes) == its + 1, f"amr-driven-tet: {len(passes)} passes")
+    check(all(q["solver_path"] == "device" and q["max_relres"] <= tol
+              for q in passes), f"amr-driven-tet: passes {passes}")
+    post = res["post_dir"]
+    for name in ("iteration1/port-S.csv", "port-S.csv", "domain-E.csv",
+                 "error-indicators.csv"):
+        _table(os.path.join(post, name))
+    print(f"[20 amr] {line_e}; amr-driven-tet box_tet {n}^3 p={p}: max "
+          f"relres {max(q['max_relres'] for q in passes):.3e}; "
+          f"{_passes(res['provenance'])}; run {wall:.2f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
+def phase_eigen_parity2(workdir: str):
+    """The damped, nonlinear and AMR eigen branches on the GPU and on the
+    CPU at small sizes: eig.csv Re f within 1e-8 and Im f within 1e-6
+    (relative), the same element counts per AMR pass."""
+    import numpy as np
+
+    import palace_torch
+    from palace_torch.cases import (write_amr_eigen_case, write_cavity_case,
+                                    write_guide_eigen_case)
+
+    t0 = time.perf_counter()
+    cases = {"cavity": lambda d, dev: write_cavity_case(
+        d, *SMALL_CAVITY_CU, device=dev, verbose=0),
+             "guide": lambda d, dev: write_guide_eigen_case(
+        d, *SMALL_GUIDE_EIGEN, device=dev, verbose=0),
+             "amr": lambda d, dev: write_amr_eigen_case(
+        d, *SMALL_AMR_EIGEN[:2], size=AMR_BOX, jitter=0.1,
+        max_its=SMALL_AMR_EIGEN[2], device=dev, verbose=0)}
+    worst = {}
+    for tag, write in cases.items():
+        out = {}
+        for dev in ("GPU", "CPU"):
+            r = palace_torch.run(write(os.path.join(workdir, f"p21_{tag}_"
+                                                              f"{dev}"), dev))
+            passes = r["provenance"].get("amr_passes")
+            out[dev] = (_table(os.path.join(r["post_dir"], "eig.csv")),
+                        [q["elements"] for q in passes] if passes
+                        else [r["sop"].mesh.num_elements])
+        (g, ge), (c, ce) = out["GPU"], out["CPU"]
+        check(ge == ce, f"{tag}: elements per pass GPU {ge}, CPU {ce}")
+        check(g.shape == c.shape, f"{tag}: eig.csv shapes {g.shape}, "
+                                  f"{c.shape}")
+        re = float((np.abs(g[:, 1] - c[:, 1]) / np.abs(c[:, 1])).max())
+        im = float((np.abs(g[:, 2] - c[:, 2])
+                    / np.maximum(np.abs(c[:, 2]), 1e-300)).max()) \
+            if np.abs(c[:, 2]).max() > 0 else float(np.abs(g[:, 2]).max())
+        check(re <= 1e-8 and im <= 1e-6,
+              f"{tag}: eig.csv GPU vs CPU Re f {re:.3e}, Im f {im:.3e}")
+        worst[tag] = (re, im, ge)
+    print("[21 eigen parity] " + "; ".join(
+        f"{tag}: Re f {re:.3e}, Im f {im:.3e}, elements {ge}"
+        for tag, (re, im, ge) in worst.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1613,10 +1921,15 @@ def main() -> int:
             wpa = phase_waveport_adaptive(workdir, S14)
             bdr = phase_boundaries(workdir)
             phase_waveport_parity(workdir)
+            damped = phase_eigen_damped(workdir)
+            nonlinear = phase_eigen_nonlinear(workdir)
+            amr = phase_amr(workdir)
+            phase_eigen_parity2(workdir)
             for name in by_path:
                 by_path[name].update(magnetostatic=mag, electrostatic=es,
                                      waveport=wp, waveport_adaptive=wpa,
-                                     boundaries=bdr)
+                                     boundaries=bdr, eigen_damped=damped,
+                                     eigen_nonlinear=nonlinear, amr=amr)
     except SmokeFailure as e:
         print(f"FAILED: {e}", flush=True)
         return 1

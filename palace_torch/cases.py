@@ -25,6 +25,19 @@ the far end x = 60 mm a second wave port (a matched line), a copper
 boundary.  The port terms are not domain tables, so its fine level is the
 element operator.
 
+`write_cavity_case` writes the damped eigenmode check: a WR-90 cavity
+(22.86 x 10.16 x 30 mm, vacuum) with copper walls as an `Impedance` Rs of
+0.02369 Ohm on all six faces (copper's surface resistance at 8.244 GHz),
+the 2 modes nearest 8 GHz (TE101 at 8.2438772 GHz, Q_c = 7706.542).
+`write_guide_eigen_case` writes the nonlinear eigenmode check: the WR-90
+guide of `write_waveguide_case` shorted by PEC at x = L and opened at
+x = 0 through a wave port (or a second-order `Absorbing` boundary), the 2
+modes nearest 9 GHz.  `write_amr_eigen_case` and `write_amr_driven_case`
+write the tet AMR checks of tests/test_amr.py:73 and :105: a 1 cm PEC
+cube cavity (its lowest mode near 15 GHz, analytic 21.198518 GHz, or a
+box of other sides) and a 10 mm TEM box between two 377 Ohm lumped ports
+at 8 GHz, both on `box_tet` meshes under `Model/Refinement`.
+
 `write_rings_case` writes the static checks on `testing/rings.py`'s mesh:
 two concentric coplanar square ribbon loops (half-sides 6 and 24 um, width
 1 um) as interior sheets of a graded 280 um hex box.  "Magnetostatic" is
@@ -35,8 +48,12 @@ rings and the box PEC); "Electrostatic" makes the rings terminals 1 and 2
 
 from __future__ import annotations
 
+import cmath
 import json
+import math
 import os
+
+from palace_torch.utils.constants import C0, Z0
 
 
 def _write(directory: str, n: int, problem: dict, material: dict,
@@ -166,6 +183,197 @@ def write_waveguide_case(directory: str, n_len: int, n_a: int, n_b: int,
     with open(path, "w") as f:
         json.dump(cfg, f, indent=1)
     return path
+
+
+def _write_config(directory: str, cfg: dict) -> str:
+    path = os.path.join(directory, "case.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+#: Copper's surface resistance (Ohm) at the WR-90 cavity's TE101 frequency.
+COPPER_RS = 0.02369
+#: The WR-90 cavity's length (mm).
+CAVITY_D = 30.0
+
+
+def shorted_guide_mode(f_guess_ghz: float, length: float = WAVEGUIDE_L * 1e-3,
+                       a: float = WR90_A * 1e-3, max_it: int = 200):
+    """The TE10 mode of a guide (lengths in m) shorted at x = length and
+    matched at x = 0 by a port that absorbs the mode at its real frequency,
+    the oracle of `write_guide_eigen_case`: the fixed point in Re omega of
+    k cot(k length) = -i beta(Re omega), beta(w) = sqrt((w / c)^2 -
+    (pi / a)^2), solved for complex k by Newton on k cos(k length) +
+    i beta sin(k length) = 0 from k = beta(f_guess); omega = c sqrt(k^2 +
+    (pi / a)^2).  Returns (f GHz complex, k, beta)."""
+    kc = math.pi / a
+    om_r = 2 * math.pi * f_guess_ghz * 1e9
+    k = complex(math.sqrt((om_r / C0) ** 2 - kc ** 2), 0.0)
+    for _ in range(max_it):
+        beta = math.sqrt((om_r / C0) ** 2 - kc ** 2)
+        for _ in range(100):
+            s, c = cmath.sin(k * length), cmath.cos(k * length)
+            dk = (k * c + 1j * beta * s) / (
+                c - k * length * s + 1j * beta * length * c)
+            k -= dk
+            if abs(dk) <= 1e-16 * abs(k):
+                break
+        om = C0 * cmath.sqrt(k * k + kc * kc)
+        done = abs(om.real - om_r) <= 1e-15 * abs(om)
+        om_r = om.real
+        if done:
+            break
+    return om / (2 * math.pi * 1e9), k, math.sqrt((om_r / C0) ** 2 - kc ** 2)
+
+
+def te10l_qc(a: float, b: float, d: float, rs: float, l: int = 1):
+    """(Q_c, f Hz) of a vacuum-filled rectangular a x b x d cavity's (m)
+    TE10l mode with walls of surface resistance rs (Ohm), the oracle of
+    `write_cavity_case` (the textbook wall-loss formula; Pozar, Microwave
+    Engineering, rectangular cavity resonators): Q_c = (k a d)^3 b eta0 /
+    (2 pi^2 Rs) / (2 l^2 a^3 b + 2 b d^3 + l^2 a^3 d + a d^3)."""
+    k = math.pi * math.sqrt((1 / a) ** 2 + (l / d) ** 2)
+    q = (k * a * d) ** 3 * b * Z0 / (2 * math.pi ** 2 * rs) / (
+        2 * l * l * a ** 3 * b + 2 * b * d ** 3 + l * l * a ** 3 * d
+        + a * d ** 3)
+    return q, k * C0 / (2 * math.pi)
+
+
+def write_cavity_case(directory: str, n_a: int, n_b: int, n_d: int,
+                      order: int, *, device: str = "GPU",
+                      verbose: int = 1) -> str:
+    """Write cavity.msh (n_a x n_b x n_d hexes along x, y, z) and case.json
+    of the copper-walled WR-90 cavity (the 2 modes nearest 8 GHz) into
+    `directory`; returns the config path."""
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_hex
+
+    os.makedirs(directory, exist_ok=True)
+    gmsh_write.write(box_hex(n_a, n_b, n_d, lx=WR90_A, ly=WR90_B,
+                             lz=CAVITY_D),
+                     os.path.join(directory, "cavity.msh"))
+    return _write_config(directory, {
+        "Problem": {"Type": "Eigenmode", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "cavity.msh", "L0": 1.0e-3},
+        "Domains": {"Materials": [{"Attributes": [1], "Permeability": 1.0,
+                                   "Permittivity": 1.0}]},
+        "Boundaries": {"Impedance": [{"Attributes": [1, 2, 3, 4, 5, 6],
+                                      "Rs": COPPER_RS}]},
+        "Solver": {"Order": order, "Device": device,
+                   "Eigenmode": {"N": 2, "Target": 8.0, "Tol": 1e-8},
+                   "Linear": {"Type": "Default"}}})
+
+
+def write_guide_eigen_case(directory: str, n_len: int, n_a: int, n_b: int,
+                           order: int, *, opening: str = "waveport",
+                           device: str = "GPU",
+                           verbose: int = 1) -> str:
+    """Write guide.msh and case.json of the shorted WR-90 guide (the 2
+    modes nearest 9 GHz) into `directory`; returns the config path.  The
+    guide is open at x = 0 through wave port 1 (Mode 1, EigenTol 1e-12)
+    or, with `opening="absorbing"`, a second-order Absorbing boundary."""
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_hex
+
+    if opening not in ("waveport", "absorbing"):
+        raise ValueError(f"guide eigen case: unknown opening {opening!r}")
+    os.makedirs(directory, exist_ok=True)
+    gmsh_write.write(box_hex(n_len, n_a, n_b, lx=WAVEGUIDE_L, ly=WR90_A,
+                             lz=WR90_B), os.path.join(directory, "guide.msh"))
+    bdr = {"PEC": {"Attributes": [2, 3, 4, 5, 6]}}
+    if opening == "waveport":
+        bdr["WavePort"] = [{"Index": 1, "Attributes": [1], "Mode": 1,
+                            "EigenTol": 1e-12}]
+    else:
+        bdr["Absorbing"] = {"Attributes": [1], "Order": 2}
+    return _write_config(directory, {
+        "Problem": {"Type": "Eigenmode", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "guide.msh", "L0": 1.0e-3},
+        "Domains": {"Materials": [{"Attributes": [1], "Permeability": 1.0,
+                                   "Permittivity": 1.0}]},
+        "Boundaries": bdr,
+        "Solver": {"Order": order, "Device": device,
+                   "Eigenmode": {"N": 2, "Target": 9.0, "Tol": 1e-8},
+                   "Linear": {"Type": "Default"}}})
+
+
+def _write_tet_box(directory: str, n: int, size, jitter: float = 0.0
+                   ) -> None:
+    import numpy as np
+
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_tet
+
+    os.makedirs(directory, exist_ok=True)
+    mesh = box_tet(n, n, n, lx=size[0], ly=size[1], lz=size[2])
+    if jitter:
+        x, hi = mesh.nodes, np.asarray(size, float)
+        inner = np.all((x > 1e-9 * hi) & (x < (1 - 1e-9) * hi), axis=1)
+        x[inner] += jitter * hi / n * np.random.default_rng(7).uniform(
+            -1, 1, (int(inner.sum()), 3))
+    gmsh_write.write(mesh, os.path.join(directory, "box.msh"))
+
+
+def write_amr_eigen_case(directory: str, n: int, order: int, *,
+                         size=(1.0, 1.0, 1.0), jitter: float = 0.0,
+                         max_its: int = 2, linear: str = "GMG",
+                         device: str = "GPU", verbose: int = 1) -> str:
+    """Write box.msh (a box_tet n^3 of `size` cm, the unit cube by
+    default; with `jitter` > 0 its interior nodes move by up to that
+    fraction of a cell, from a fixed seed) and case.json of the PEC box
+    cavity under AMR (L0 1 cm, the mode nearest 15 GHz, UpdateFraction
+    0.95, `max_its` passes, each adapted mesh saved) into `directory`;
+    returns the config path.  The cube's lowest mode is triply degenerate,
+    so which vector of it a solve returns follows round-off; and the
+    structured mesh ties many indicators exactly, so which tied elements
+    are marked does too.  A box of three different sides has a simple
+    lowest mode, and jittered nodes untie the indicators."""
+    _write_tet_box(directory, n, size, jitter)
+    return _write_config(directory, {
+        "Problem": {"Type": "Eigenmode", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "box.msh", "L0": 1.0e-2,
+                  "Refinement": {"Tol": 1e-12, "MaxIts": max_its,
+                                 "UpdateFraction": 0.95,
+                                 "SaveAdaptMesh": True}},
+        "Domains": {"Materials": [{"Attributes": [1],
+                                   "Permittivity": 1.0}]},
+        "Boundaries": {"PEC": {"Attributes": [1, 2, 3, 4, 5, 6]}},
+        "Solver": {"Order": order, "Device": device,
+                   "Eigenmode": {"N": 1, "Target": 15.0, "Tol": 1e-9},
+                   "Linear": {"Type": linear, "Tol": 1e-9}}})
+
+
+def write_amr_driven_case(directory: str, n: int, order: int, *,
+                          linear: str = "GMG",
+                          device: str = "GPU", verbose: int = 1) -> str:
+    """Write box.msh (a box_tet n^3, 10 mm cube) and case.json of the TEM
+    box under AMR: eps_r 2, tan delta 0.01, PEC z faces, lumped ports of
+    eta0 on the x faces (+Z, port 1 excited), 8 GHz, UpdateFraction 0.4,
+    MaxIts 1; returns the config path."""
+    eta0 = 376.730313412
+    _write_tet_box(directory, n, (10.0, 10.0, 10.0))
+    return _write_config(directory, {
+        "Problem": {"Type": "Driven", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "box.msh", "L0": 1.0e-3,
+                  "Refinement": {"Tol": 1e-12, "MaxIts": 1,
+                                 "UpdateFraction": 0.4}},
+        "Domains": {"Materials": [{"Attributes": [1], "Permittivity": 2.0,
+                                   "LossTan": 0.01}]},
+        "Boundaries": {
+            "PEC": {"Attributes": [5, 6]},
+            "LumpedPort": [
+                {"Index": 1, "Attributes": [1], "R": eta0, "Direction": "+Z",
+                 "Excitation": True},
+                {"Index": 2, "Attributes": [2], "R": eta0,
+                 "Direction": "+Z"}]},
+        "Solver": {"Order": order, "Device": device,
+                   "Driven": {"MinFreq": 8.0, "MaxFreq": 8.0, "FreqStep": 1.0},
+                   "Linear": {"Type": linear, "Tol": 1e-10, "MaxIts": 500}}})
 
 
 def write_rings_case(directory: str, h: float, order: int, *,

@@ -22,7 +22,7 @@ import numpy as np
 from palace_torch.config import IoData
 from palace_torch.mesh.crack import local_edge_split
 from palace_torch.mesh.mesh import Mesh
-from palace_torch.utils import timers
+from palace_torch.utils import timers, unported
 
 
 def dorfler_mark(eta2: np.ndarray, fraction: float) -> np.ndarray:
@@ -84,6 +84,18 @@ def refine_marked(mesh: Mesh, marked: np.ndarray) -> Mesh:
             seen.add(key)
             edges.append(key)
     return local_edge_split(mesh, edges)
+
+
+def refuse_hex_amr(iodata: IoData, mesh, problem: str):
+    """Hex refinement leaves hanging nodes, and fem/hanging.py constrains
+    H1 spaces only: palace_tpu solves the ND system unconstrained on such a
+    mesh, a nonconforming answer that is no reference."""
+    from palace_torch.fem.reference import Geom
+
+    if (iodata.model.refinement.max_it > 0
+            and any(b.geom is Geom.HEX for b in mesh.buckets)):
+        unported(f"{problem} AMR on hexahedral meshes "
+                 "(Model/Refinement/MaxIts)", "nonconforming ND AMR")
 
 
 def archive_iteration(post_dir: str, it: int, max_it: int) -> None:

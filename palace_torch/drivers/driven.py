@@ -27,10 +27,12 @@ import numpy as np
 import torch
 
 from palace_torch.config import IoData, ValueType
+from palace_torch.drivers.amr import adapt_loop, refuse_hex_amr
 from palace_torch.drivers.common import (
     make_output_dir, nondim_point, prepare_mesh, print_log,
     write_error_indicators,
 )
+from palace_torch.mesh.mesh import canonicalize_simplices
 from palace_torch.models.spaceoperator import SpaceOperator
 from palace_torch.post.tables import Column, Table
 from palace_torch.utils import provenance, timers, unported
@@ -182,15 +184,49 @@ def _drive_port(sop: SpaceOperator, excitation_idx: int) -> Optional[int]:
 
 def solve(iodata: IoData, output_dir: str | None = None,
           device: torch.device = torch.device("cpu")):
-    """Driven solve on a fixed mesh (AMR is not ported yet)."""
+    """Driven solve, inside the reference's solve-estimate-mark-refine AMR
+    wrapper when Model/Refinement/MaxIts > 0 (reference:
+    palace/drivers/basesolver.cpp:160-288 around drivensolver.cpp): each
+    pass builds a fresh SpaceOperator, device solver and PROM on the
+    refined tet mesh; hex meshes are refused (nonconforming ND AMR)."""
     t0 = time.time()
-    if iodata.model.refinement.max_it > 0:
-        unported("Driven AMR (Model/Refinement/MaxIts)",
-                  "driven and eigenmode AMR")
     with timers.block("Mesh preprocessing"):
         mesh = prepare_mesh(iodata)
+    refuse_hex_amr(iodata, mesh, "Driven")
     post_dir = make_output_dir(iodata, output_dir)
-    result, _, _ = _solve_on_mesh(iodata, mesh, post_dir, device)
+    if iodata.model.refinement.max_it <= 0:
+        result, _, _ = _solve_on_mesh(iodata, mesh, post_dir, device)
+    else:
+        if max(int(iodata.solver.driven.restart), 1) > 1:
+            # Reference style: warn for incompatible options and continue
+            # with the option disabled rather than aborting the solve.
+            print_log(iodata, 'WARNING: "Restart" is incompatible with AMR; '
+                              "restarting the sweep from the first sample")
+            iodata.solver.driven.restart = 1
+
+        def solve_and_estimate(m):
+            canonicalize_simplices(m)
+            setup0 = timers.seconds("Operator construction", "  Setup")
+            solve0 = timers.seconds("Linear solve", "PROM construction")
+            res, eta2_steps, energies = _solve_on_mesh(iodata, m, post_dir,
+                                                       device)
+            relres = (res["ksp"] or {}).get("col_relres", {})
+            provenance.append("amr_passes", dict(
+                elements=m.num_elements, dofs=res["num_dofs"],
+                setup_s=timers.seconds("Operator construction", "  Setup")
+                - setup0,
+                solve_s=timers.seconds("Linear solve", "PROM construction")
+                - solve0,
+                solver_path=provenance.snapshot().get("solver_path"),
+                max_relres=max(relres.values()) if relres else None))
+            return res, eta2_steps, energies, res["num_dofs"]
+
+        result, _, eta_norm, mesh, n_adapt = adapt_loop(
+            iodata, mesh, solve_and_estimate, post_dir=post_dir)
+        result["amr_iterations"] = n_adapt
+        result["provenance"] = provenance.snapshot()
+        print_log(iodata, f"AMR finished after {n_adapt} iterations "
+                          f"(indicator norm {eta_norm:.3e})")
     print_log(iodata, f"driven done in {time.time() - t0:.1f}s")
     return result
 

@@ -1,14 +1,35 @@
 """Eigenmode driver (counterpart of palace_tpu/drivers/eigenmode.py; reference:
-palace/drivers/eigensolver.cpp), for the linear pencil K x = omega^2 M x.
+palace/drivers/eigensolver.cpp): the damped Maxwell eigenproblem
+(K + lam C + lam^2 M) x = 0 with lam = i omega, and the linear pencil
+K x = omega^2 M x when there is no damping.
 
-Two branches are ported.  The lossless linear branch runs block Lanczos on
-the run's device (`linalg/device_eig.py:device_shift_invert_eigs`) when the
-configuration selects the iterative solver (`use_device_ksp`); otherwise the
-host shift-invert ARPACK branch runs (`linalg/eig.py:shift_invert_eigs`),
-which also takes a lossy (complex) permittivity.  The damped quadratic
-branch, the nonlinear branch of frequency-dependent boundaries, Floquet
-terms, and the surface, far-field and ParaView outputs raise
+The lossless linear branch runs block Lanczos on the run's device
+(`linalg/device_eig.py:device_shift_invert_eigs`) when the configuration
+selects the iterative solver (`use_device_ksp`); otherwise the host
+shift-invert ARPACK branch runs (`linalg/eig.py:shift_invert_eigs`), which
+also takes a lossy (complex) permittivity.  Damping (domain conductivity,
+impedance Rs/Ls, lumped-port R, first-order absorbing boundaries) makes C
+nonzero: the quadratic branch runs the host subspace solver
+`quadratic_eigs_jd`, seeded with lossless modes (and, under strong
+damping, with the modes of the damped surfaces held at zero), on the
+pencil projected off its gradients (the div-free data, H1 constrained on
+`SpaceOperator.aux_bdr_attrs`), and falls back to the companion ARPACK
+iteration `quadratic_eigs` when it does not converge.  Wave ports and
+second-order absorbing boundaries make the problem nonlinear in omega:
+A2(omega) is interpolated by a quadratic Newton polynomial on
+[i omega_t, i omega_u] into the pencil, and each pair found is refined by
+fixed point against the true A2.  With Model/Refinement/MaxIts > 0 the
+solve runs inside the AMR loop on tets (`drivers/amr.py`).  Floquet terms,
+hex-mesh AMR, and the surface, far-field and ParaView outputs raise
 NotImplementedError naming their ROADMAP item.
+
+Deliberate divergence from the JAX package: only the non-convergence the
+ARPACK fallback exists for is caught (`quadratic_eigs_jd` returning None,
+ARPACK's no-convergence error from a seed); any other exception of the
+damped path propagates, where palace_tpu catches every exception and
+falls back quietly.  The path taken is in the provenance (`eigen_path`,
+`jd_attempts`, `jd_strong_seed`, `divfree`, and for the nonlinear branch
+`nonlinear_harvest_rounds` and `nonlinear_refine_iterations`).
 
 Eigenvectors are normalized to unit M-norm so the per-mode electric field
 energy is 1/2 nondimensional (reference: palace/linalg/slepc.cpp:470-510);
@@ -25,13 +46,16 @@ import time
 
 import numpy as np
 import torch
+from scipy.sparse.linalg import ArpackNoConvergence
 
 from palace_torch.config import IoData, ValueType
 from palace_torch.drivers.common import (
     make_output_dir, prepare_mesh, print_log, write_error_indicators,
 )
+from palace_torch.drivers.amr import adapt_loop, refuse_hex_amr
 from palace_torch.drivers.driven import _energy, use_device_ksp
-from palace_torch.linalg.eig import shift_invert_eigs
+from palace_torch.linalg.eig import (quadratic_eigs, quadratic_eigs_jd,
+                                     shift_invert_eigs)
 from palace_torch.models.spaceoperator import SpaceOperator
 from palace_torch.post.tables import Column, Table, index_column
 from palace_torch.utils import provenance, timers, unported
@@ -40,13 +64,6 @@ from palace_torch.utils import provenance, timers, unported
 def _check_unported(iodata: IoData):
     """Refuse, before any work, the eigenmode features the port lacks."""
     b = iodata.boundaries
-    if iodata.model.refinement.max_it > 0:
-        unported("Eigenmode AMR (Model/Refinement/MaxIts)",
-                 "driven and eigenmode AMR")
-    if b.wave_ports or (b.absorbing is not None and b.absorbing.attributes
-                        and b.absorbing.order > 1):
-        unported("The nonlinear eigenproblem (wave ports, second-order "
-                 "absorbing boundaries)", "nonlinear eigenmode")
     if b.conductivities:
         # As in palace_tpu (and the reference for non-PEP solvers).
         raise NotImplementedError(
@@ -67,17 +84,189 @@ def _check_unported(iodata: IoData):
                  "ParaView output")
 
 
+def _funcA2(sop: SpaceOperator, omega: float):
+    """A2(omega) of the eigenproblem: the wave-port and second-order
+    absorbing terms, or None."""
+    parts = [a for a in (sop.waveport_a2_csr(omega), sop.abc2_a2_csr(omega))
+             if a is not None]
+    if not parts:
+        return None
+    out = parts[0]
+    for a in parts[1:]:
+        out = (out + a).tocsr()
+    return out
+
+
+def newton_a2_pencil(sop: SpaceOperator, omega_t: float, omega_u: float,
+                     Kcsr, Ccsr, Mcsr):
+    """Fold A2(lam) ~ P0 + lam P1 + lam^2 P2 (the quadratic Newton
+    polynomial through i omega_t, i (omega_t + omega_u) / 2, i omega_u; the
+    reference's HYBRID interpolation, nleps.cpp
+    NewtonInterpolationOperator) into (K, C, M); returns (K, C, M, A2 at
+    omega_t), or the pencil unchanged and None without A2 terms."""
+    probe = _funcA2(sop, omega_t)
+    if probe is None:
+        return Kcsr, Ccsr, Mcsr, None
+    pts = [1j * omega_t, 1j * 0.5 * (omega_t + omega_u), 1j * omega_u]
+    S = [probe, _funcA2(sop, 0.5 * (omega_t + omega_u)),
+         _funcA2(sop, omega_u)]
+    d01 = (S[1] - S[0]) * (1.0 / (pts[1] - pts[0]))
+    d12 = (S[2] - S[1]) * (1.0 / (pts[2] - pts[1]))
+    d012 = (d12 - d01) * (1.0 / (pts[2] - pts[0]))
+    P2 = d012
+    P1 = d01 - (pts[0] + pts[1]) * d012
+    P0 = S[0] - pts[0] * d01 + pts[0] * pts[1] * d012
+    return ((Kcsr + P0).tocsr(),
+            (P1 if Ccsr is None else Ccsr + P1).tocsr(),
+            (Mcsr + P2).tocsr(), probe)
+
+
+def divfree_data(iodata: IoData, sop: SpaceOperator):
+    """(G, M_re) of the damped pencil's div-free projection, with the H1
+    space held Dirichlet on `aux_bdr_attrs` (reference:
+    eigensolver.cpp:204-218, spaceoperator.cpp:193-204), and a note of why
+    it is or is not built; off with London depths, as in palace_tpu."""
+    from palace_torch.fem.h1 import H1Space
+    from palace_torch.fem.nd_operators import nd_h1_gradient
+
+    if any(abs(l) > 0 for l in sop.materials.london_depth.values()):
+        return None, "off: London penetration depths"
+    try:
+        h1 = H1Space(sop.mesh, iodata.solver.order)
+        G = nd_h1_gradient(sop.space, h1).tocsr()
+        aux = sop.aux_bdr_attrs()
+        if aux:
+            bdr = np.asarray(h1.boundary_dofs(aux), np.int64)
+            G = G[:, np.setdiff1d(np.arange(G.shape[1]), bdr)].tocsr()
+    except (NotImplementedError, RuntimeError) as e:
+        return None, f"off: {e!r}"
+    return ((G, sop._csr(sop._combine(sop.M_re, []))),
+            f"built: {G.shape[1]} H1 columns, Dirichlet on {aux}")
+
+
+def _damped_jd(iodata, Kcsr, Ccsr, Mcsr, ess, omega_t, attempt, divfree):
+    """One JD attempt of the damped branch (palace_tpu/drivers/
+    eigenmode.py:144-193): the lossless seed (doubled on attempt 1), the
+    PEC-seeded second seed under strong damping (median C / (omega M) > 10
+    on the damped dofs), then `quadratic_eigs_jd`.  Returns (result or
+    None, strong); a seed's ARPACK no-convergence gives None."""
+    cfg = iodata.solver.eigenmode
+    nev = max(cfg.n, 1)
+    Kre = (Kcsr.real if np.iscomplexobj(Kcsr.data) else Kcsr).tocsr()
+    Mre = (Mcsr.real if np.iscomplexobj(Mcsr.data) else Mcsr).tocsr()
+    k_seed = min((nev + 8) << attempt, Kcsr.shape[0] // 4)
+    cd = np.abs(np.asarray(Ccsr.diagonal()))
+    damped = np.where(cd > 1e-12 * cd.max())[0] if cd.max() > 0 \
+        else np.zeros(0, np.int64)
+    md = np.abs(np.asarray(Mcsr.diagonal()))[damped]
+    strong = bool(len(damped) and np.median(
+        cd[damped] / np.maximum(omega_t * md.real, 1e-300)) > 10.0)
+    try:
+        X0 = shift_invert_eigs(Kre, Mre, ess, omega_t ** 2, k_seed,
+                               tol=min(cfg.tol, 1e-9)).eigenvectors
+        if strong:
+            ess2 = np.union1d(ess, damped)
+            if len(ess2) < Kcsr.shape[0] - 4 * k_seed:
+                seed2 = shift_invert_eigs(Kre, Mre, ess2, omega_t ** 2,
+                                          k_seed, tol=min(cfg.tol, 1e-9))
+                X0 = np.concatenate([X0, seed2.eigenvectors], axis=1)
+    except ArpackNoConvergence as e:
+        print_log(iodata, f"quadratic JD seed did not converge ({e})")
+        return None, strong
+    return quadratic_eigs_jd(
+        Kcsr, Ccsr, Mcsr, ess, 1j * omega_t, nev + 4 + 8 * attempt, X0,
+        tol=cfg.tol, divfree=divfree, log=lambda s: print_log(iodata, s),
+        # The tight polish refactorizes P(lam) per RQI step: affordable
+        # below 150,000 reduced dofs, as in palace_tpu.
+        polish_tol=(min(cfg.tol * 1e-4, 1e-10) if Kcsr.shape[0] < 150_000
+                    else None),
+        n_polish=cfg.n + 2), strong
+
+
+def _refine_nonlinear(iodata, sop, ess, omega, vecs, res, bkwd):
+    """Fixed point of each interpolated pair against the true A2: freeze
+    A2 at the pair's Re omega, re-solve the pencil seeded with the pair
+    (`quadratic_eigs_jd`, one vector; `quadratic_eigs` when it returns
+    None), repeat until omega moves by less than max(Tol, 1e-9), at most
+    12 times (palace_tpu/drivers/eigenmode.py:292-338; its floor of 1e-10
+    on the inner tolerance is inherited).  Updates the arrays in place and
+    returns the iterations per pair."""
+    cfg = iodata.solver.eigenmode
+    K0, C0, M0 = sop.stiffness_csr(), sop.damping_csr(), sop.mass_csr()
+    iters = []
+    for i in range(len(omega)):
+        om, x = omega[i], vecs[:, i]
+        rr = j = None
+        for it in range(12):
+            A2f = _funcA2(sop, float(np.real(om)))
+            Kf = (K0 + A2f).tocsr()
+            Cf = (C0 + 0 * A2f).tocsr() if C0 is not None else \
+                (0 * A2f).tocsr()
+            rr = quadratic_eigs_jd(Kf, Cf, M0, ess, 1j * om, 1, x[:, None],
+                                   tol=max(cfg.tol, 1e-10), max_rounds=6,
+                                   log=lambda s: print_log(iodata, s))
+            if rr is None:
+                rr = quadratic_eigs(Kf, Cf, M0, ess, 1j * om, 4, tol=cfg.tol)
+            omr = -1j * rr.eigenvalues
+            j = int(np.argmin(np.abs(omr - om)))
+            dw = abs(omr[j] - om) / max(abs(om), 1e-30)
+            om, x = omr[j], rr.eigenvectors[:, j]
+            if dw < max(cfg.tol, 1e-9):
+                break
+        iters.append(it + 1)
+        omega[i], vecs[:, i] = om, x
+        res[i], bkwd[i] = rr.residuals[j], rr.backward_errors[j]
+    return iters
+
+
+def _harvest(iodata, Kcsr, Ccsr, Mcsr, ess, omega_t, omega, vecs, res, bkwd):
+    """The interpolated pencil's reach around the shift is limited: while
+    fewer than N physical pairs are found, harvest candidates from a
+    second pencil solve targeted above the highest mode so far (at most 3
+    rounds; palace_tpu/drivers/eigenmode.py:266-290).  Returns the grown
+    arrays; records the rounds taken."""
+    cfg = iodata.solver.eigenmode
+    nev = max(cfg.n, 1)
+    rounds = 0
+    if len(omega) < cfg.n:
+        sig2 = 1.15 * (np.real(omega).max() if len(omega) else omega_t)
+        for _ in range(3):
+            rounds += 1
+            r2 = quadratic_eigs(Kcsr, Ccsr, Mcsr, ess, 1j * sig2,
+                                2 * nev + 8, tol=cfg.tol)
+            om2 = -1j * r2.eigenvalues
+            k2 = ((np.real(om2) > omega_t)
+                  & (np.imag(om2) > -1e-2 * abs(omega_t)))
+            fresh = [j for j in np.where(k2)[0]
+                     if all(abs(om2[j] - o) > 1e-6 * abs(o) for o in omega)]
+            if fresh:
+                fr = sorted(fresh, key=lambda j: np.real(om2[j]))
+                fr = fr[: cfg.n - len(omega)]
+                omega = np.concatenate([omega, om2[fr]])
+                vecs = np.concatenate([vecs, r2.eigenvectors[:, fr]], axis=1)
+                res = np.concatenate([res, r2.residuals[fr]])
+                bkwd = np.concatenate([bkwd, r2.backward_errors[fr]])
+            if len(omega) >= cfg.n:
+                break
+            sig2 *= 1.2
+    provenance.record("nonlinear_harvest_rounds", rounds)
+    return omega, vecs, res, bkwd
+
+
 def solve(iodata: IoData, output_dir: str | None = None,
           device: torch.device = torch.device("cpu")):
     t0 = time.time()
     _check_unported(iodata)
     with timers.block("Mesh preprocessing"):
         mesh = prepare_mesh(iodata)
+    refuse_hex_amr(iodata, mesh, "Eigenmode")
     post_dir = make_output_dir(iodata, output_dir)
     units = iodata.units
     cfg = iodata.solver.eigenmode
 
     def solve_and_estimate(m):
+        setup0 = timers.seconds("Operator construction", "  Setup")
+        solve0 = timers.seconds("Eigenvalue solve")
         with timers.block("Operator construction"):
             sop = SpaceOperator(iodata, m, device=device)
             space = sop.space
@@ -86,24 +275,57 @@ def solve(iodata: IoData, output_dir: str | None = None,
             Mcsr = sop.mass_csr()
         print_log(iodata, f"eigenmode: {space.num_dofs} dofs, "
                           f"{m.num_elements} elements, device {device}")
-        if Ccsr is not None and abs(Ccsr).max() > 0:
-            unported("The damped (quadratic) eigenproblem (resistive or "
-                     "absorbing boundaries, conductivity)", "damped eigenmode")
         ess = np.where(sop.ess_mask)[0]
 
         f_t = units.nondimensionalize(ValueType.FREQUENCY, cfg.target)
         omega_t = 2 * np.pi * f_t
         nev = max(cfg.n, 1)
+
+        # Frequency-dependent boundary terms (wave ports, second-order
+        # absorbing) make the problem nonlinear in omega: interpolate them
+        # into the quadratic pencil on [i omega_t, i omega_u].
+        with timers.block("Operator construction"):
+            f_u = cfg.target_upper
+            omega_u = 2 * np.pi * units.nondimensionalize(
+                ValueType.FREQUENCY, f_u if f_u > 0 else 3 * cfg.target)
+            Kcsr, Ccsr, Mcsr, probeA2 = newton_a2_pencil(
+                sop, omega_t, omega_u, Kcsr, Ccsr, Mcsr)
+        damped = Ccsr is not None and abs(Ccsr).max() > 0
+        divfree = None
+        if damped:
+            with timers.block("Operator construction"):
+                divfree, note = divfree_data(iodata, sop)
+            provenance.record("divfree", note)
         # Request extra vectors (the gradient-nullspace cluster at
         # lambda = 0 is filtered below); grow the subspace and retry if the
         # filter leaves fewer than the n requested physical modes.
         extra = 8
-        lossless_linear = sop.M_im is None
+        lossless_linear = probeA2 is None and sop.M_im is None
         for attempt in range(3):
             k_req = 2 * nev + extra
             with timers.block("Eigenvalue solve"):
-                if lossless_linear and use_device_ksp(iodata,
-                                                      space.num_dofs):
+                if damped:
+                    # The JD fast path first (twice, the second time with
+                    # doubled seeds), the companion ARPACK iteration when
+                    # it does not converge (reference: SLEPc PEP/TOAR,
+                    # eigensolver.cpp:98-155).
+                    result = None
+                    if attempt <= 1:
+                        provenance.record("jd_attempts", attempt + 1)
+                        result, strong = _damped_jd(
+                            iodata, Kcsr, Ccsr, Mcsr, ess, omega_t, attempt,
+                            divfree)
+                        provenance.record("jd_strong_seed", strong)
+                    if result is not None:
+                        provenance.record("eigen_path", "quadratic-jd")
+                    else:
+                        result = quadratic_eigs(Kcsr, Ccsr, Mcsr, ess,
+                                                1j * omega_t, k_req,
+                                                tol=cfg.tol, divfree=divfree)
+                        provenance.record("eigen_path", "quadratic-arpack")
+                    omega = -1j * result.eigenvalues  # lam = i omega
+                elif lossless_linear and use_device_ksp(iodata,
+                                                        space.num_dofs):
                     from palace_torch.linalg.device_eig import (
                         device_shift_invert_eigs)
 
@@ -125,8 +347,15 @@ def solve(iodata: IoData, output_dir: str | None = None,
                         Kcsr, Mcsr, ess, omega_t ** 2, k_req, tol=cfg.tol,
                         which="LM")
                     provenance.record("eigen_path", "host-arpack")
-            omega = np.sqrt(result.eigenvalues.astype(complex))
+                if not damped:
+                    omega = np.sqrt(result.eigenvalues.astype(complex))
             keep = (np.real(omega) > max(1e-8, 1e-3 * abs(omega_t)))
+            if probeA2 is not None:
+                # The interpolated pencil sprays spurious anti-damped
+                # modes; keep the physical branch above the target
+                # (reference: nleps.cpp:786 Im lam > Im sigma).
+                keep &= (np.real(omega) > omega_t)
+                keep &= (np.imag(omega) > -1e-2 * abs(omega_t))
             if keep.sum() >= cfg.n or 2 * nev + extra > Kcsr.shape[0] // 4:
                 break
             extra = 2 * extra + 2 * nev
@@ -140,6 +369,30 @@ def solve(iodata: IoData, output_dir: str | None = None,
         res = result.residuals[keep][order]
         bkwd = result.backward_errors[keep][order]
         omega = omega[order]
+
+        if probeA2 is not None:
+            with timers.block("Eigenvalue solve"):
+                omega, vecs, res, bkwd = _harvest(
+                    iodata, Kcsr, Ccsr, Mcsr, ess, omega_t, omega, vecs, res,
+                    bkwd)
+                iters = _refine_nonlinear(iodata, sop, ess, omega, vecs,
+                                          res, bkwd)
+            provenance.record("nonlinear_refine_iterations", iters)
+            order = np.argsort(np.real(omega))
+            omega, vecs = omega[order], vecs[:, order]
+            res, bkwd = res[order], bkwd[order]
+        if iodata.model.refinement.max_it > 0:
+            prov = provenance.snapshot()
+            ghz = omega * units.scale_factor(ValueType.FREQUENCY) / (
+                2 * np.pi)
+            provenance.append("amr_passes", dict(
+                elements=m.num_elements, dofs=space.num_dofs,
+                setup_s=timers.seconds("Operator construction", "  Setup")
+                - setup0, solve_s=timers.seconds("Eigenvalue solve") - solve0,
+                eigen_path=prov.get("eigen_path"),
+                fine_level=prov.get("fine_level"),
+                re_f_ghz=[float(f.real) for f in ghz], im_f_ghz=[
+                    float(f.imag) for f in ghz]))
 
         # Curl-flux error indicators per mode, normalized by the mode
         # energy (unit M-norm: E_elec = 1/4 -> total E = 1/2).
@@ -179,13 +432,12 @@ def solve(iodata: IoData, output_dir: str | None = None,
                         E_ind += 0.5 * abs(port.L) * float(
                             np.real(Ip * np.conj(Ip)))
                 energies.append(E_elec + E_mag + E_cap + E_ind)
-        return ((sop, Mcsr, omega, vecs, res, bkwd), eta2, energies,
-                space.num_dofs)
+        return ((sop, Kcsr, Ccsr, Mcsr, omega, vecs, res, bkwd), eta2,
+                energies, space.num_dofs)
 
-    from palace_torch.drivers.amr import adapt_loop
-
-    ((sop, Mcsr, omega, vecs, res, bkwd), eta_elem, _, mesh, _) = adapt_loop(
-        iodata, mesh, solve_and_estimate)
+    ((sop, Kcsr, Ccsr, Mcsr, omega, vecs, res, bkwd), eta_elem, _, mesh,
+     n_adapt) = adapt_loop(iodata, mesh, solve_and_estimate,
+                           post_dir=post_dir)
     space = sop.space
 
     with timers.block("Postprocessing"):
@@ -230,7 +482,7 @@ def solve(iodata: IoData, output_dir: str | None = None,
     return dict(frequencies_ghz=f, post_dir=post_dir, num_dofs=space.num_dofs,
                 modes=np.stack(modes, axis=1) if modes else None,
                 residuals=res, backward_errors=bkwd, sop=sop,
-                provenance=provenance.snapshot())
+                amr_iterations=n_adapt, provenance=provenance.snapshot())
 
 
 def _write_domain_energy(iodata, sop, post_dir, omega, modes):

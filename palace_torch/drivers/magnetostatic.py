@@ -21,10 +21,9 @@ from palace_torch.drivers.common import (
     print_log, solve_spd, write_error_indicators,
 )
 from palace_torch.fem import evaluation
-from palace_torch.fem.reference import Geom
 from palace_torch.models.curlcurl import CurlCurlOperator
 from palace_torch.post.tables import Column, Table, index_column
-from palace_torch.utils import provenance, timers, unported
+from palace_torch.utils import provenance, timers
 
 
 def solve(iodata: IoData, output_dir: str | None = None,
@@ -35,14 +34,9 @@ def solve(iodata: IoData, output_dir: str | None = None,
     t0 = time.time()
     with timers.block("Mesh preprocessing"):
         mesh = prepare_mesh(iodata)
-    if (iodata.model.refinement.max_it > 0
-            and any(b.geom is Geom.HEX for b in mesh.buckets)):
-        # Hex refinement leaves hanging nodes, and fem/hanging.py constrains
-        # H1 spaces only: palace_tpu solves the curl-curl system on the
-        # unconstrained ND space there, a nonconforming and wrong answer.
-        unported("Magnetostatic AMR on hexahedral meshes "
-                 "(Model/Refinement/MaxIts)", "nonconforming ND AMR")
-    from palace_torch.drivers.amr import adapt_loop
+    from palace_torch.drivers.amr import adapt_loop, refuse_hex_amr
+
+    refuse_hex_amr(iodata, mesh, "Magnetostatic")
     from palace_torch.fem.estimators import curl_flux_indicators
     from palace_torch.mesh.mesh import canonicalize_simplices
 

@@ -267,6 +267,35 @@ class SpaceOperator:
     def _csr(self, tables) -> sp.csr_matrix:
         return tables_csr(tables, self.space.num_dofs)
 
+    def aux_bdr_attrs(self) -> list:
+        """Boundary attributes whose H1 dofs are held Dirichlet in the
+        divergence-free projection's auxiliary space (reference:
+        spaceoperator.cpp:193-204, aux_bdr_marker = dbc | farfield |
+        surf_sigma | surf_Z Rs/Ls | lumped-port R/L | wave; Floquet ports
+        are refused in the constructor).
+
+        Gradients of H1 functions constrained on every lossy/port surface
+        have zero tangential trace there, so g^H C x = 0 for any damped
+        eigenvector x and the projection leaves the quadratic pencil's
+        physical spectrum untouched; with the unconstrained H1 space the
+        projection corrupts every damped eigenvalue."""
+        iod = self.iodata
+        attrs = set(iod.boundaries.pec)
+        if iod.boundaries.absorbing is not None:
+            attrs.update(iod.boundaries.absorbing.attributes)
+        for cd in iod.boundaries.conductivities:
+            attrs.update(cd.attributes)
+        for imp in iod.boundaries.impedances:
+            if imp.Rs != 0.0 or imp.Ls != 0.0:
+                attrs.update(imp.attributes)
+        for lp in iod.boundaries.lumped_ports:
+            if any(abs(v) > 0 for v in (lp.R, lp.L, lp.Rs, lp.Ls)):
+                for el in lp.elements:
+                    attrs.update(el.attributes)
+        for wp in iod.boundaries.wave_ports:
+            attrs.update(wp.attributes)
+        return sorted(attrs)
+
     def stiffness_csr(self) -> sp.csr_matrix:
         return self._csr(self._combine(self.K_dom, self.K_bdr))
 

@@ -130,3 +130,9 @@ def reset():
 
 def block(category: str):
     return GLOBAL.block(category)
+
+
+def seconds(*categories: str) -> float:
+    """Seconds the current solve's timer has credited so far to
+    `categories` (the drivers difference it around each AMR pass)."""
+    return sum(GLOBAL.times.get(c, 0.0) for c in categories)

@@ -2,9 +2,15 @@
 """The WR-90 guide of palace_torch/cases.py through both packages on the
 CPU at reduced depth, against the analytic TE10 line: the numbers behind
 chip_smoke.py's wave-port gates (phase 14) and its copper-short gate
-(phase 16a).
+(phase 16a); and the oracles of its eigenmode phases: the shorted guide
+opened through a wave port (phase 19), whose modes are the fixed point of
+the 1D TE10 problem E = sin(k (L - x)), omega^2 = c^2 (k^2 + (pi/a)^2),
+with the port's condition k cot(k L) = -i beta(Re omega) at x = 0
+(`palace_torch.cases.shorted_guide_mode`), and the copper-walled cavity
+(phase 18), whose TE101 quality factor is the textbook wall-loss Q_c of a
+rectangular cavity's TE10l mode (`palace_torch.cases.te10l_qc`).
 
-Run from the repository root (about 6 minutes on 4 CPU threads):
+Run from the repository root (about 7 minutes on 4 CPU threads):
 
     JAX_PLATFORMS=cpu python scripts/waveguide_reference.py
 
@@ -15,7 +21,9 @@ and measure_step), the worst over the 8 frequencies of ||S21| - 1|, |S11|,
 and 24 cells along the guide (Order 3) is from its S at 36 cells (phase
 15 runs a shorter guide than phase 14 and compares their S); then Re kn
 of the 8 x 6, Order 3 cross-section alone, and the copper short's worst
-|(1 - |S11|) / (1 - |Gamma|) - 1|.  This script compares the port with palace_tpu, so it
+|(1 - |S11|) / (1 - |Gamma|) - 1|; then both packages' modes of the
+shorted guide (9 x 4 x 3, Order 2) against `shorted_guide_mode` and of
+the cavity (4 x 2 x 5, Order 2) against `te10l_qc`.  This script compares the port with palace_tpu, so it
 imports both (as the tests do); the port itself imports no JAX.
 """
 
@@ -26,6 +34,8 @@ import sys
 import tempfile
 
 sys.path.insert(0, os.getcwd())
+
+from palace_torch.cases import shorted_guide_mode, te10l_qc  # noqa: E402
 
 C0, MU0, ETA0 = 299792458.0, 1.25663706127e-6, 376.730313412
 A, L, SIGMA = 22.86e-3, 60e-3, 5.8e7
@@ -146,6 +156,44 @@ def main():
             meas, freqs, _, _ = sweep(path)
             print(f"copper short 9x4x3 p=2 {name}: 1 - |S11| against "
                   f"1 - |Gamma| {short_error(meas, freqs):.3e}", flush=True)
+        eigen_errors(wd)
+
+
+def eigen_errors(wd):
+    """Both packages' modes of the shorted guide and the copper cavity
+    against their oracles."""
+    import numpy as np
+
+    import palace_torch
+    import palace_tpu
+    from palace_torch.cases import (COPPER_RS, WR90_B, CAVITY_D,
+                                    write_cavity_case, write_guide_eigen_case)
+
+    roots = [shorted_guide_mode(g)[0] for g in (9.4, 11.4)]
+    q, f101 = te10l_qc(A, WR90_B * 1e-3, CAVITY_D * 1e-3, COPPER_RS)
+    print(f"1D fixed point: {roots[0]:.9f}, {roots[1]:.9f} GHz; TE101 "
+          f"{f101 / 1e9:.9f} GHz, Q_c {q:.6f}", flush=True)
+    for tag, path, oracle in (
+            ("shorted guide 9x4x3 p=2", write_guide_eigen_case(
+                os.path.join(wd, "guide_eigen"), 9, 4, 3, 2, device="CPU",
+                verbose=0), None),
+            ("copper cavity 4x2x5 p=2", write_cavity_case(
+                os.path.join(wd, "cavity"), 4, 2, 5, 2, device="CPU",
+                verbose=0), (f101 / 1e9, q))):
+        for name, run in (("palace_torch", palace_torch.run),
+                          ("palace_tpu", palace_tpu.run)):
+            f = np.asarray(run(path, os.path.join(
+                os.path.dirname(path), name))
+                           ["frequencies_ghz"])
+            if oracle is None:
+                err = max(abs(x - r) / abs(r) for x, r in zip(f, roots))
+                print(f"{tag} {name}: modes {f}, max |df| / |f| {err:.3e}",
+                      flush=True)
+            else:
+                Q = abs(f[0]) / (2 * f[0].imag)
+                print(f"{tag} {name}: TE101 {f[0]:.9f} GHz (Re f "
+                      f"{abs(f[0].real / oracle[0] - 1):.3e}), Q {Q:.6f} "
+                      f"({abs(Q / oracle[1] - 1):.3e})", flush=True)
 
 
 if __name__ == "__main__":

@@ -243,3 +243,143 @@ def test_archive_iteration_matches_jax(tmp_path):
     assert sorted(os.listdir(tmp_path / "torch" / "iteration03")) == \
         sorted(os.listdir(tmp_path / "jax" / "iteration03")) == \
         ["palace.json", "terminal-C.csv"]
+
+
+def _spy_passes(monkeypatch, module, log):
+    """Record (elements, the run's omega) of every pass of the driver's
+    `adapt_loop` (both eigen drivers return omega at result[0][4])."""
+    loop = module.adapt_loop
+
+    def spy(iodata, mesh, solve_and_estimate, post_dir=None):
+        def wrapped(m):
+            out = solve_and_estimate(m)
+            log.append((m.num_elements, np.array(out[0][4])))
+            return out
+        return loop(iodata, mesh, wrapped, post_dir=post_dir)
+
+    return spy
+
+
+@pytest.mark.parametrize("kind", ["cube", "jittered"])
+def test_eigen_amr_converges_matches_jax(tmp_path, monkeypatch, kind):
+    """tests/test_amr.py:73 (the 1 cm PEC cube, box_tet 3^3, Order 1, host
+    ARPACK, MaxIts 3) through both packages: four passes, the error below
+    0.7 x the first pass's, and the same files (the eigen tables are
+    written after the loop, so the iteration archive holds the adapted
+    mesh).  The cube's lowest mode is triply degenerate and its structured
+    mesh ties many indicators exactly, so which vector ARPACK returns and
+    which of the tied elements Dörfler marks follow round-off: after the
+    first pass the two packages' meshes part (1,276 against 1,292 elements
+    at pass 3).  So the cube is held at its first pass (f within 1e-8);
+    the same cube with its interior nodes jittered (seeded), whose
+    indicators do not tie, is held at every pass: the same element counts
+    and f within 1e-8."""
+    from palace_torch.cases import write_amr_eigen_case
+    from palace_torch.drivers import eigenmode as teigen
+
+    monkeypatch.setenv("PALACE_TPU_MULTICHIP", "0")
+    path = write_amr_eigen_case(str(tmp_path / "case"), 3, 1,
+                                jitter=0.1 if kind == "jittered" else 0.0,
+                                max_its=3, linear="Default", device="CPU",
+                                verbose=0)
+    logs = {"torch": [], "jax": []}
+    monkeypatch.setattr(teigen, "adapt_loop",
+                        _spy_passes(monkeypatch, tamr, logs["torch"]))
+    monkeypatch.setattr(jamr, "adapt_loop",
+                        _spy_passes(monkeypatch, jamr, logs["jax"]))
+    rt = palace_torch.run(path, str(tmp_path / "torch"))
+    rj = jax_api.run(path, str(tmp_path / "jax"))
+    held = logs["torch"] if kind == "jittered" else logs["torch"][:1]
+    for (nt, wt), (nj, wj) in zip(held, logs["jax"]):
+        assert nt == nj
+        assert np.abs(wt - wj).max() <= 1e-8 * np.abs(wj).max()
+    assert len(logs["torch"]) == len(logs["jax"]) == 4
+    assert rt["amr_iterations"] == 3
+    f_exact = 299792458.0 / 2.0 * np.sqrt(2.0) / 1.0e-2 / 1e9
+    for log in logs.values():
+        f = [w[0].real * _ghz_per_omega(rt) for _, w in log]
+        assert abs(f[-1] - f_exact) < 0.7 * abs(f[0] - f_exact)
+    assert rt["frequencies_ghz"][0].real == pytest.approx(
+        logs["torch"][-1][1][0].real * _ghz_per_omega(rt), rel=1e-14)
+    if kind == "jittered":
+        assert abs(rj["frequencies_ghz"][0] - rt["frequencies_ghz"][0]) \
+            <= 1e-8 * abs(rj["frequencies_ghz"][0])
+    passes = json.loads(json.dumps(rt["provenance"]))["amr_passes"]
+    assert all(p["eigen_path"] == "host-arpack" for p in passes)
+    assert np.allclose([p["re_f_ghz"][0] for p in passes],
+                       [w[0].real * _ghz_per_omega(rt)
+                        for _, w in logs["torch"]], rtol=1e-14, atol=0)
+    listing = {name: sorted(os.listdir(tmp_path / name))
+               for name in ("jax", "torch")}
+    assert listing["torch"] == listing["jax"]
+    assert "iteration2" in listing["torch"]
+
+
+def _ghz_per_omega(res):
+    """GHz per unit of the run's nondimensional omega."""
+    from palace_torch.config import ValueType
+
+    return res["sop"].iodata.units.scale_factor(ValueType.FREQUENCY) / (
+        2 * np.pi)
+
+
+def _s_diff(a, b):
+    return float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max())
+
+
+def test_driven_amr_loop_matches_jax(tmp_path, monkeypatch):
+    """tests/test_amr.py:105 (the TEM box between two lumped ports,
+    box_tet 3^3, Order 1, MaxIts 1) through both packages: the same
+    element counts, port-S.csv of iteration1 and of the final pass within
+    1e-8, the same files, and one setup time a pass in the provenance."""
+    from palace_torch.cases import write_amr_driven_case
+
+    monkeypatch.setenv("PALACE_TPU_MULTICHIP", "0")
+    path = write_amr_driven_case(str(tmp_path / "case"), 3, 1,
+                                 linear="Default", device="CPU", verbose=0)
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["Solver"]["Driven"]["Restart"] = 2
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    logs = {}
+    for name, module, run in (("jax", jamr, jax_api.run),
+                              ("torch", tamr, palace_torch.run)):
+        logs[name] = {"elements": [162], "norms": []}
+        _spy(monkeypatch, module, logs[name])
+        logs[name]["result"] = run(path, str(tmp_path / name))
+    assert logs["torch"]["elements"] == logs["jax"]["elements"]
+    assert len(logs["torch"]["elements"]) == 2
+    assert np.allclose(logs["torch"]["norms"], logs["jax"]["norms"],
+                       rtol=1e-8, atol=0)
+    for sub in ("iteration1", ""):
+        st, sj = (np.loadtxt(tmp_path / name / sub / "port-S.csv",
+                             delimiter=",", skiprows=1)
+                  for name in ("torch", "jax"))
+        assert st.shape == sj.shape and _s_diff(st, sj) <= 1e-8
+    listing = {name: sorted(os.listdir(tmp_path / name))
+               for name in ("jax", "torch")}
+    assert listing["torch"] == listing["jax"]
+    rt = logs["torch"]["result"]
+    passes = json.loads(json.dumps(rt["provenance"]))["amr_passes"]
+    assert rt["amr_iterations"] == 1 and len(passes) == 2
+    assert [p["elements"] for p in passes] == logs["torch"]["elements"]
+    assert all(p["setup_s"] > 0 and p["solver_path"] == "direct"
+               for p in passes)
+
+
+@pytest.mark.parametrize("problem", ["driven", "eigen"])
+def test_hex_amr_is_refused(tmp_path, problem):
+    """Driven and eigenmode AMR on hexes would solve the ND system on an
+    unconstrained hanging-node mesh, as palace_tpu does."""
+    from palace_torch.cases import write_eigen_case, write_slice_case
+
+    writer = write_slice_case if problem == "driven" else write_eigen_case
+    path = writer(str(tmp_path), 2, 1, device="CPU", verbose=0)
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["Model"]["Refinement"] = {"MaxIts": 1}
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    with pytest.raises(NotImplementedError, match="nonconforming ND AMR"):
+        palace_torch.run(path, str(tmp_path / "torch"))

@@ -13,7 +13,9 @@ import torch
 
 import palace_torch
 from palace_torch.__main__ import main as cli_main
-from palace_torch.cases import (write_adaptive_case, write_eigen_case,
+from palace_torch.cases import (write_adaptive_case, write_amr_driven_case,
+                                 write_amr_eigen_case, write_cavity_case,
+                                 write_eigen_case, write_guide_eigen_case,
                                  write_rings_case, write_slice_case,
                                  write_waveguide_case)
 from palace_torch.config import IoData
@@ -57,11 +59,22 @@ def _guide(directory, n, order, **kw):
     return write_waveguide_case(directory, 2 * n, n, n, order, **kw)
 
 
+def _cavity(directory, n, order, **kw):
+    return write_cavity_case(directory, n, n, n, order, **kw)
+
+
+def _guide_eigen(directory, n, order, **kw):
+    return write_guide_eigen_case(directory, 2 * n, n, n, order, **kw)
+
+
 @pytest.mark.parametrize("writer", [write_slice_case, write_eigen_case,
                                     write_adaptive_case, _rings_es,
-                                    _rings_ms, _guide],
+                                    _rings_ms, _guide, _cavity, _guide_eigen,
+                                    write_amr_eigen_case,
+                                    write_amr_driven_case],
                          ids=["driven", "eigen", "adaptive", "electrostatic",
-                              "magnetostatic", "waveguide"])
+                              "magnetostatic", "waveguide", "eigen_damped",
+                              "eigen_nonlinear", "eigen_amr", "driven_amr"])
 def test_entry_points_default_to_the_gpu(tmp_path, writer):
     """The case writers and the port's schema pick the GPU unless asked for
     the CPU; without CUDA a run then refuses to start."""
@@ -106,7 +119,7 @@ def test_solver_routing(tmp_path):
 
 
 @pytest.mark.parametrize("feature,item", [
-    ("amr", "driven and eigenmode AMR"),
+    ("amr", "nonconforming ND AMR"),
     ("paraview", "surface, far-field and ParaView postprocessing"),
     ("floquet", "Floquet ports and Floquet eigenmode"),
 ])

@@ -4,15 +4,18 @@
   the port's scripts (profile_torch_slice.py, mutate_kernels.py,
   ab_kernel_core.py) finds no import of jax, jaxlib or
   palace_tpu, function-level imports and string imports (`__import__`,
-  `importlib.import_module`) included.
+  `importlib.import_module`) included; nor does any of them load a
+  module from a file path (`spec_from_file_location`, `runpy.run_path`),
+  which would bring in code the scan does not read.
 - At run time: in a fresh interpreter whose import system refuses those
   packages, every palace_torch module imports, the 3^3 driven slice case,
   the box-tet eigenmode case (host branch), a coarse rings magnetostatic
   case, a hex electrostatic AMR pass (nonconforming refinement and its
   host solve), the WR-90 guide between two wave ports (device solver) and
-  its adaptive sweep ended by a second-order absorbing boundary run on the
-  CPU, and neither package is in sys.modules at the
-  end.  The eigenmode device branch runs
+  its adaptive sweep ended by a second-order absorbing boundary, the
+  copper-walled cavity (damped eigen branch), the shorted guide's
+  nonlinear eigenproblem and a driven tet AMR loop run on the CPU, and
+  neither package is in sys.modules at the end.  The eigenmode device branch runs
   under the same guard in test_torch_eigen.py."""
 
 import ast
@@ -93,6 +96,20 @@ res = palace_torch.run(write_waveguide_case(
     os.path.join(sys.argv[1], "guide_a"), 6, 3, 2, 1, termination="absorbing",
     adaptive=True, device="CPU", verbose=0))
 assert res["provenance"]["prom_hdm_path"] == "direct-slow-a2"
+from palace_torch.cases import (write_amr_driven_case, write_cavity_case,
+                                write_guide_eigen_case)
+
+res = palace_torch.run(write_cavity_case(
+    os.path.join(sys.argv[1], "cavity"), 4, 2, 5, 1, device="CPU", verbose=0))
+assert res["provenance"]["eigen_path"] == "quadratic-jd"
+res = palace_torch.run(write_guide_eigen_case(
+    os.path.join(sys.argv[1], "guide_e"), 6, 3, 2, 1, device="CPU",
+    verbose=0))
+assert len(res["provenance"]["nonlinear_refine_iterations"]) == 2
+res = palace_torch.run(write_amr_driven_case(
+    os.path.join(sys.argv[1], "amr_d"), 2, 1, linear="Default", device="CPU",
+    verbose=0))
+assert res["amr_iterations"] == 1
 assert not any(k.split(".")[0] in REFUSED for k in sys.modules)
 print("NOJAX-OK")
 """
@@ -134,6 +151,28 @@ def test_port_sources_import_no_jax_package():
              for mod, line in _imported_modules(path)
              if mod.split(".")[0] in REFUSED]
     assert len(_sources()) > 60
+    assert not found, "\n".join(found)
+
+
+#: Calls that load a module from a file path: what they load is not among
+#: the scanned sources, so the scan could not see a JAX import there.
+FILE_LOADERS = ("spec_from_file_location", "SourceFileLoader", "run_path",
+                "exec_module")
+
+
+def test_port_sources_load_no_file_past_the_scan():
+    found = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call):
+                fn = node.func
+                name = fn.attr if isinstance(fn, ast.Attribute) else \
+                    getattr(fn, "id", None)
+                if name in FILE_LOADERS:
+                    found.append(f"{os.path.relpath(path, REPO)}:"
+                                 f"{node.lineno} calls {name}")
     assert not found, "\n".join(found)
 
 
