@@ -84,9 +84,11 @@ result line):
      reference, every relres, the host residual of every column against
      scipy's A(omega) = K + i omega C - omega^2 M + i Re kn Mwp and
      b = i omega rhs1 + rhs2, and S and Re kn against the analytic TE10
-     line; prints the timers, the FGMRES iterations, the peak memory and the
-     element fine level's apply (its device time at this shape, its bound
-     and its calls in the run);
+     line, the port-2 Power flux (surface-F.csv) against |S21|^2 (1e-3,
+     unit incident power) and the ParaView output at two of its
+     frequencies (every field at every mesh node); prints the timers, the
+     FGMRES iterations, the peak memory and the element fine level's apply
+     (its device time at this shape, its bound and its calls in the run);
  15. wave-port adaptive path: the guide at 24 x 8 x 6 (100,338 dofs; its
      phase 14's depth) swept in 0.1 GHz steps (43 frequencies; 85 at 0.05
      GHz before the script needed the time), AdaptiveTol 1e-6,
@@ -121,11 +123,11 @@ result line):
      nonlinear backward error with A2 at each pair's Re omega (1e-6), the
      port mode's gradient deflation and quadrant phase reference;
  20. AMR on tets with the device solvers (Linear Type GMG): the 1 x 0.8 x
-     0.6 cm PEC box cavity (box_tet 6^3, Order 2, MaxIts 2), its lowest
-     mode's (TE110) error
+     0.6 cm PEC box cavity (box_tet 6^3, Order 2, MaxIts 1; 2 until the
+     script needed the time), its lowest mode's (TE110) error
      shrinking every pass (below 0.7 x the first pass's), every pass on
-     block Lanczos with the element fine level, the adapted meshes and the
-     iteration archive written; and the TEM box between two lumped ports
+     block Lanczos with the element fine level, the adapted meshes (and,
+     from a third pass on, the iteration archive) written; and the TEM box between two lumped ports
      (box_tet 6^3, Order 2, MaxIts 1), every pass's column at Tol on the
      device with no direct re-solve, iteration1/port-S.csv and the final
      tables written; prints each pass's dofs, setup and solve time;
@@ -133,10 +135,47 @@ result line):
      the shorted guide at 9 x 4 x 3, Order 2, and the box's AMR at box_tet
      3^3 with its interior nodes jittered (untied indicators), Order 1,
      MaxIts 2, on the GPU and on the CPU: eig.csv Re f within
-     1e-8 and Im f within 1e-6 (relative), equal element counts per pass.
-Neither structured-apply kernel runs on phases 10-21 (element-mode
-operators and the element fine level, plain torch); the kernel record
-counts their launches there (0).
+     1e-8 and Im f within 1e-6 (relative), equal element counts per pass;
+     the cavity also carries an Electric and a Power SurfaceFlux, an MA
+     Dielectric, a FarField and ParaView mode output: surface-F.csv,
+     surface-Q.csv, farfield-rE.csv and the VTU arrays (every field at
+     every node) within 1e-8;
+ 22. transient path: palace_torch.run on the parallel-plate TEM line
+     between two matched 377 Ohm lumped ports (20 x 10 x 10 mm, box_tet 12
+     x 6 x 6, Order 2, 18,264 dofs; GeneralizedAlpha, a 30 GHz
+     ModulatedGaussian of width 0.02 ns, 126 steps of 0.002 ns) on the GPU,
+     with a probe and a domain energy; checks peak |V2| within 8% of peak
+     |V1|, the delay between the two ports' envelope peaks within 5% of
+     L / c0, the energy at MaxTime below 1e-4 of its maximum, the host
+     residual of three implicit solves (1e-10), every indicator mass
+     solve on the device CG, and all five tables with a row a step;
+     prints the time per step of the implicit solve, the energies and the
+     indicators, the timers and the run's peak memory;
+ 23. transient and outputs, card against host: the four schemes on the
+     10 mm line, Order 2 (13 steps): GeneralizedAlpha and RungeKutta at
+     6^3 (9,324 dofs), ARKODE and CVODE at 4 x 3 x 3 (1,718 dofs) and at
+     the default RelTol 1e-4, AbsTol 1e-9: port-V/I, domain-E and probe
+     tables within 1e-10 and error-indicators.csv within 1e-8, the other
+     schemes within 5e-2 of GeneralizedAlpha on the same line; the 6^3
+     line driven at 15 GHz with a Power
+     SurfaceFlux and a Dielectric on port 2 (flux within 0.05 of 1 W, Q =
+     1 / (p tan delta) to 1e-9, surface-F/Q.csv within 1e-8); the short
+     dipole in its ABC2 box (box_tet 7^3, Order 2, 14,546 dofs, sparse
+     direct): the sin theta pattern
+     (0.1 and 0.15) and polarization (0.1) on the GPU, farfield-rE.csv
+     within 1e-8.
+Neither structured-apply kernel runs on phases 10-23 (element-mode
+operators and the element fine level, plain torch; the transient step is
+a host splu); the kernel record counts their launches there (0).
+Peak device memory is each run's own: its peak above what was allocated
+when it started (`_memory_mark`).
+Phases 1-3 and then 22 run alone; after them the phases run in three
+processes on the one card: phases 4-9 in this one, phases 14-17 and 21
+and phases 10-13, 18-20 and 23 in two more (`python3 chip_smoke.py --phases
+GROUP DIR`, which the script starts itself and stops with it), so that
+their lines interleave and their times include the other processes'
+share of the card and of the host; each process counts its own kernel
+launches.
 The line before the last is the kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -242,13 +281,61 @@ CAVITY_CU, CAVITY_CU_DOFS = (8, 4, 10, 3), 28722
 GUIDE_EIGEN, GUIDE_EIGEN_DOFS = (18, 4, 3, 3), 20055
 SMALL_CAVITY_CU, SMALL_GUIDE_EIGEN = (4, 2, 5, 2), (9, 4, 3, 2)
 #: Phase 20's tet AMR cases (box_tet n^3, the order, and MaxIts of the
-#: eigen cases; the driven case's writer sets MaxIts 1) and phase 21's
+#: eigen cases: the eigen box's MaxIts cut from 2, whose third pass took
+#: 35,148 dofs and a 65.02 s Lanczos, so that phases 22-23 fit; the driven
+#: case's writer sets MaxIts 1) and phase 21's
 #: small eigen AMR case; the eigen cases' PEC box (cm: three different
 #: sides, so its lowest mode, TE110, is simple and the marking does not
 #: follow round-off as in a cube's degenerate mode) and that mode (GHz).
-AMR_EIGEN, AMR_DRIVEN, SMALL_AMR_EIGEN = (6, 2, 2), (6, 2), (3, 1, 2)
+AMR_EIGEN, AMR_DRIVEN, SMALL_AMR_EIGEN = (6, 2, 1), (6, 2), (3, 1, 2)
 AMR_BOX = (1.0, 0.8, 0.6)
 AMR_BOX_F = C0 / 2 * math.hypot(1 / AMR_BOX[0], 1 / AMR_BOX[1]) / 1e-2 / 1e9
+#: Phase 14's driven outputs: the ParaView save frequencies (GHz, two of
+#: the sweep's) and the gate of the port-2 Power flux against |S21|^2
+#: (unit incident power; the flux's error falls as the fourth power of the
+#: cells along the guide: on the CPU at 9 and 12 cells, Order 3, it is
+#: 1.48e-2 and 4.95e-3 at 12.4 GHz).
+GUIDE_SAVE, GUIDE_FLUX_GATE = (8.2, 12.4), 1e-3
+#: Phase 22's TEM line (palace_torch/cases.py:write_tem_line_case): its
+#: length (mm), box_tet cells along it and across its 10 x 10 mm section,
+#: the order, its ND dofs, the time step and MaxTime (ns).  The cells are
+#: those of tests/test_driven_transient.py:24 (1.67 mm); the line is 20 mm
+#: long, not 40, because the host factorizations of the copied implicit
+#: step (scipy splu, COLAMD) grow faster than the dofs: at 40 x 10 x 10 mm
+#: on 24 x 8 x 8 cells (62,928 dofs) splu(M) took 82.7 s and splu(A) 44.9
+#: s on the CPU, and each step's solve 0.19 s.  MaxTime covers the pulse's
+#: delay of 4.5 widths (0.09 ns), the transit L / c0 (0.0667 ns) and a
+#: tail of 4.5 widths.
+TEM_LINE, TEM_LINE_DOFS = (20.0, 12, 6, 2), 18264
+TEM_DT, TEM_MAX_T = 0.002, 0.25
+#: Phase 23's lines, 10 mm long, Order 2, and the pulse of
+#: tests/test_driven_transient.py:343 (a 10 GHz ModulatedGaussian of width
+#: 0.08 ns, 13 steps of 0.005 ns).  GeneralizedAlpha and RungeKutta run on
+#: the 6^3 line of tests/test_driven_transient.py:24 (9,324 dofs), which
+#: also carries the driven surface tables.  The adaptive schemes run on a
+#: 4 x 3 x 3 line (1,718 dofs) at the reference's default RelTol 1e-4 and
+#: AbsTol 1e-9, with GeneralizedAlpha beside them on the GPU as their
+#: reference: each accepted dt change refactors A on the host, so that at
+#: 6^3 one ARKODE run takes minutes, and at RelTol 1e-6 / AbsTol 1e-12
+#: ARKODE takes 13,088 internal steps even at 4 x 3 x 3 (ROADMAP).
+#: The dipole box is box_tet 7^3, Order 2 (14,546 dofs, sparse direct; cut
+#: from tests/test_farfield_dipole.py's 8^3, 21,424 dofs, whose device
+#: solves took 40 s a run on the CPU; on the CPU at 7^3 the |rE| ratios
+#: are 1.6% and 7.4% from sin 45 and sin 30, at 8^3 0.8% and 0.7%).
+LINE, ADAPTIVE_LINE = (10.0, 6, 6, 2), (10.0, 4, 3, 2)
+LINE_PULSE = dict(excitation_freq=10.0, excitation_width=0.08,
+                  max_time=0.06, time_step=0.005)
+DIPOLE = (7, 2)
+#: After phases 3 and 22, which run alone (so that the kernels and the
+#: transient step are timed alone), phases 4-9 run in this process and
+#: two groups of phases (`GROUPS`) in processes of their own on the same
+#: card; each process counts its own kernel launches and runs torch (the
+#: groups also their BLAS) on a third of the host's cores, rounded up.
+GROUP_FLAG, GROUP_RESULT = "--phases", "paths.json"
+THREADS = -(-(os.cpu_count() or 3) // 3)
+#: The whole run's time limit (s), less a margin for the last lines.
+DEADLINE_S = 1150.0
+T_START = time.perf_counter()
 
 
 class SmokeFailure(Exception):
@@ -579,6 +666,51 @@ def _table(path: str):
     return data
 
 
+def _vtu_arrays(path: str) -> dict:
+    """{Name: (n, components) array} of a VTU file's float64 arrays (the
+    points under "Points")."""
+    import numpy as np
+
+    with open(path) as f:
+        text = f.read()
+    out = {}
+    for m in re.finditer(r'<DataArray type="Float64" (?:Name="([^"]+)" )?'
+                         r'NumberOfComponents="(\d)" format="ascii">\n'
+                         r'(.*?)</DataArray>', text, re.S):
+        vals = np.array(m.group(3).split(), float)
+        out[m.group(1) or "Points"] = vals.reshape(-1, int(m.group(2)))
+    return out
+
+
+def _check_vtus(tag: str, directory: str, mesh, count: int, fields):
+    """The collection `directory` holds `count` VTU files listed in its
+    .pvd, each with the mesh's nodes and every field finite at every node;
+    returns the arrays of the first."""
+    import numpy as np
+
+    name = os.path.basename(directory)
+    pvd = os.path.join(directory, f"{name}.pvd")
+    check(os.path.exists(pvd), f"{tag}: missing {pvd}")
+    with open(pvd) as f:
+        files = re.findall(r'file="([^"]+)"', f.read())
+    check(len(files) == count, f"{tag}: {len(files)} ParaView files, "
+                               f"expected {count}")
+    first = None
+    for fn in files:
+        arrays = _vtu_arrays(os.path.join(directory, fn))
+        check(sorted(arrays) == sorted(("Points",) + tuple(fields)),
+              f"{tag}: {fn} holds {sorted(arrays)}")
+        check(np.abs(arrays["Points"] - mesh.nodes).max()
+              <= 1e-9 * np.abs(mesh.nodes).max(), f"{tag}: {fn} points")
+        for key in fields:
+            check(arrays[key].shape == (mesh.num_nodes, 3)
+                  and np.isfinite(arrays[key]).all()
+                  and np.abs(arrays[key]).max() > 0,
+                  f"{tag}: {fn} field {key} {arrays[key].shape}")
+        first = first or arrays
+    return first
+
+
 def _rel_diff(a, b) -> float:
     """Max over columns of max |a - b| / max |b| (columns of zeros must
     match exactly)."""
@@ -590,6 +722,18 @@ def _rel_diff(a, b) -> float:
         s = float(np.abs(b[:, j]).max())
         worst = max(worst, d / s if s > 0 else (0.0 if d == 0 else np.inf))
     return worst
+
+
+def _memory_mark() -> int:
+    """Start a run's device-memory reading: resets the peak counter and
+    returns the bytes still allocated (tensors of earlier phases), which a
+    run's peak is read above, so that it does not depend on the phases
+    before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def _zero_counts():
@@ -611,7 +755,8 @@ def _durations(post: str) -> str:
         dur = json.load(f)["ElapsedTime"]["Durations"]
     return ", ".join(f"{k} {dur[k]:.2f} s" for k in (
         "Meshpreprocessing", "Operatorconstruction", "Setup", "Linearsolve",
-        "PROMconstruction", "Eigenvaluesolve", "Estimatorsolve",
+        "PROMconstruction", "Eigenvaluesolve", "Timestepping",
+        "Estimatorsolve",
         "Adaptation", "Postprocessing") if k in dur)
 
 
@@ -625,14 +770,14 @@ def phase_driven(workdir: str):
     t_phase = time.perf_counter()
     cfg = write_slice_case(os.path.join(workdir, "driven"), DRIVEN_N, 3,
                            tol=1e-8, max_its=200, device="GPU", verbose=0)
-    torch.cuda.reset_peak_memory_stats()
+    base = _memory_mark()
     _zero_counts()
     t0 = time.perf_counter()
     res = palace_torch.run(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, other = _counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     prov, info = res["provenance"], res["ksp"]
     check(res["num_dofs"] == P3_DOFS[DRIVEN_N],
           f"unexpected dof count {res['num_dofs']}")
@@ -694,14 +839,14 @@ def phase_eigen(workdir: str):
     t_phase = time.perf_counter()
     cfg = write_eigen_case(os.path.join(workdir, "eigen"), EIGEN_N, 3,
                            tol=tol, device="GPU", verbose=0)
-    torch.cuda.reset_peak_memory_stats()
+    base = _memory_mark()
     _zero_counts()
     t0 = time.perf_counter()
     res = palace_torch.run(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     other, launches = _counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     prov = res["provenance"]
     check(res["num_dofs"] == P3_DOFS[EIGEN_N],
           f"unexpected dof count {res['num_dofs']}")
@@ -821,14 +966,14 @@ def phase_adaptive(workdir: str):
     tol = 1e-6  # the case's AdaptiveTol
     cfg = write_adaptive_case(os.path.join(workdir, "adaptive"), ADAPTIVE_N, 3,
                               device="GPU", verbose=0)
-    torch.cuda.reset_peak_memory_stats()
+    base = _memory_mark()
     _zero_counts()
     t0 = time.perf_counter()
     res = palace_torch.run(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, other = _counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     prov, prom = res["provenance"], res["prom"]
     check(res["num_dofs"] == P3_DOFS[ADAPTIVE_N],
           f"unexpected dof count {res['num_dofs']}")
@@ -996,15 +1141,14 @@ def _static_run(workdir: str, problem: str, tol: float, max_its: int):
     cfg = write_rings_case(os.path.join(workdir, problem), RINGS_H,
                            RINGS_ORDER, problem=problem, tol=tol,
                            max_its=max_its, device="GPU", verbose=0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    base = _memory_mark()
     _zero_counts()
     t0 = time.perf_counter()
     res = palace_torch.run(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     check(launches == (0, 0), f"{problem}: structured kernels launched "
                               f"{launches} times on an element-mode path")
     check(res["num_dofs"] == RINGS_DOFS[problem],
@@ -1383,8 +1527,7 @@ def _guide_run(workdir: str, tag: str, n=None, dofs=None, **kw):
     n, dofs = (GUIDE_N, GUIDE_DOFS) if n is None else (n, dofs)
     cfg = write_waveguide_case(os.path.join(workdir, tag), *n, GUIDE_P,
                                device="GPU", verbose=0, **kw)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    base = _memory_mark()
     _zero_counts()
     t0 = time.perf_counter()
     with _ElemApplies() as applies:
@@ -1406,7 +1549,7 @@ def _guide_run(workdir: str, tag: str, n=None, dofs=None, **kw):
         phases = {sol.phase for sol in wp._mode_cache.values()}
         check(phases == {"quadrant"}, f"{tag}: port {wp.index} phase "
                                       f"references {phases}")
-    return res, wall, torch.cuda.max_memory_allocated(), applies.count
+    return res, wall, torch.cuda.max_memory_allocated() - base, applies.count
 
 
 def _uniform_checks(tag, res):
@@ -1431,15 +1574,20 @@ def phase_waveport(workdir: str):
     returns (kernel launches, {f GHz: (S11, S21)}); `_guide_run` has
     checked that neither kernel launched."""
     t_phase = time.perf_counter()
-    res, wall, peak, applies = _guide_run(workdir, "guide")
+    res, wall, peak, applies = _guide_run(
+        workdir, "guide", save_freqs=GUIDE_SAVE, postprocessing={
+            "SurfaceFlux": [{"Index": 1, "Attributes": [2],
+                             "Type": "Power"}]})
     relres, resid = _uniform_checks("waveport", res)
     sop, meas = res["sop"], res["measurements"]
     S = {}
-    worst = dict.fromkeys(("S21", "S11", "phase", "kn"), 0.0)
+    worst = dict.fromkeys(("S21", "S11", "phase", "kn", "flux"), 0.0)
     for (ex, i), m in meas.items():
         f = res["freqs_ghz"][i]
         k, beta = _te10(f)
         S11, S21 = m.ports[1].S, m.ports[2].S
+        worst["flux"] = max(worst["flux"], abs(m.surf_flux[1].real
+                                               - abs(S21) ** 2))
         S[round(f, 9)] = (S11, S21)
         omega = res["omegas"][i]  # nondimensional, where c = 1
         kn = sop.wave_ports[1].solve_mode(omega).kn.real
@@ -1451,8 +1599,14 @@ def phase_waveport(workdir: str):
     for key, gate in GUIDE_GATES.items():
         check(worst[key] <= gate, f"waveport: TE10 {key} error "
                                   f"{worst[key]:.3e} > {gate:.0e}")
-    for name in ("port-S.csv", "domain-E.csv", "error-indicators.csv"):
+    check(worst["flux"] <= GUIDE_FLUX_GATE, f"waveport: port-2 Power flux "
+          f"against |S21|^2 {worst['flux']:.3e} > {GUIDE_FLUX_GATE:.0e}")
+    for name in ("port-S.csv", "domain-E.csv", "error-indicators.csv",
+                 "surface-F.csv"):
         _table(os.path.join(res["post_dir"], name))
+    _check_vtus("waveport", os.path.join(res["post_dir"], "paraview",
+                                         "driven"), sop.mesh,
+                len(GUIDE_SAVE), ("E_real", "E_imag", "B_real", "B_imag"))
     rep = _elem_apply_report(sop, res["omegas"])
     prov = res["provenance"]
     print(f"[14 waveport] WR-90 {'x'.join(map(str, GUIDE_N))} hex p="
@@ -1461,7 +1615,9 @@ def phase_waveport(workdir: str):
           f"{relres:.3e}, host residual {resid:.3e}; against the analytic "
           f"TE10 line: ||S21| - 1| {worst['S21']:.3e}, |S11| "
           f"{worst['S11']:.3e}, arg S21 + beta L {worst['phase']:.3e} rad, "
-          f"Re kn / beta - 1 {worst['kn']:.3e}; port mode solves "
+          f"Re kn / beta - 1 {worst['kn']:.3e}; port-2 Power flux against "
+          f"|S21|^2 {worst['flux']:.3e}, ParaView at {len(GUIDE_SAVE)} "
+          f"frequencies; port mode solves "
           f"{prov.get('waveport_mode_solves')} in "
           f"{prov.get('waveport_mode_seconds', 0.0):.2f} s (host); element "
           f"fine level (E={rep['elements']}, {rep['terms']} terms, F="
@@ -1643,13 +1799,13 @@ def phase_waveport_parity(workdir: str):
 
 def _gpu_run(cfg: str, tag: str):
     """One run of `cfg` on the GPU: (result, wall seconds, peak device
-    memory); checks neither structured kernel launched."""
+    memory of the run, `_memory_mark`); checks neither structured kernel
+    launched."""
     import torch
 
     import palace_torch
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    base = _memory_mark()
     _zero_counts()
     t0 = time.perf_counter()
     res = palace_torch.run(cfg)
@@ -1658,7 +1814,7 @@ def _gpu_run(cfg: str, tag: str):
     launches = _counts()
     check(launches == (0, 0), f"{tag}: structured kernels launched "
                               f"{launches} times")
-    return res, wall, torch.cuda.max_memory_allocated()
+    return res, wall, torch.cuda.max_memory_allocated() - base
 
 
 def _pencil_bkwd(sop, x, omega, a2=None) -> float:
@@ -1819,8 +1975,12 @@ def phase_amr(workdir: str):
           and err[-1] < 0.7 * err[0],
           f"amr-eigen-tet: errors against {AMR_BOX_F} GHz per pass {err}")
     post = res["post_dir"]
+    # The eigen driver writes its tables after the loop, so a pass's
+    # archive holds only the adapted meshes of the passes before it: the
+    # first archive is iteration2.
     for name in [f"amr-mesh-{i}.msh" for i in range(1, its + 1)] + [
-            f"iteration{its}", "eig.csv", "error-indicators.csv"]:
+            f"iteration{i}" for i in range(2, its + 1)] + [
+            "eig.csv", "error-indicators.csv"]:
         check(os.path.exists(os.path.join(post, name)),
               f"amr-eigen-tet: missing {name}")
     line_e = (f"amr-eigen-tet box_tet {n}^3 p={p}: f error per pass "
@@ -1852,22 +2012,22 @@ def phase_amr(workdir: str):
 def phase_eigen_parity2(workdir: str):
     """The damped, nonlinear and AMR eigen branches on the GPU and on the
     CPU at small sizes: eig.csv Re f within 1e-8 and Im f within 1e-6
-    (relative), the same element counts per AMR pass."""
+    (relative), the same element counts per AMR pass; the cavity's surface,
+    far-field and ParaView outputs within 1e-8."""
     import numpy as np
 
     import palace_torch
-    from palace_torch.cases import (write_amr_eigen_case, write_cavity_case,
+    from palace_torch.cases import (write_amr_eigen_case,
                                     write_guide_eigen_case)
 
     t0 = time.perf_counter()
-    cases = {"cavity": lambda d, dev: write_cavity_case(
-        d, *SMALL_CAVITY_CU, device=dev, verbose=0),
+    cases = {"cavity": _cavity_outputs_case,
              "guide": lambda d, dev: write_guide_eigen_case(
         d, *SMALL_GUIDE_EIGEN, device=dev, verbose=0),
              "amr": lambda d, dev: write_amr_eigen_case(
         d, *SMALL_AMR_EIGEN[:2], size=AMR_BOX, jitter=0.1,
         max_its=SMALL_AMR_EIGEN[2], device=dev, verbose=0)}
-    worst = {}
+    worst, outputs = {}, {}
     for tag, write in cases.items():
         out = {}
         for dev in ("GPU", "CPU"):
@@ -1877,6 +2037,8 @@ def phase_eigen_parity2(workdir: str):
             out[dev] = (_table(os.path.join(r["post_dir"], "eig.csv")),
                         [q["elements"] for q in passes] if passes
                         else [r["sop"].mesh.num_elements])
+            if tag == "cavity":
+                outputs[dev] = _cavity_outputs(r, dev)
         (g, ge), (c, ce) = out["GPU"], out["CPU"]
         check(ge == ce, f"{tag}: elements per pass GPU {ge}, CPU {ce}")
         check(g.shape == c.shape, f"{tag}: eig.csv shapes {g.shape}, "
@@ -1888,10 +2050,383 @@ def phase_eigen_parity2(workdir: str):
         check(re <= 1e-8 and im <= 1e-6,
               f"{tag}: eig.csv GPU vs CPU Re f {re:.3e}, Im f {im:.3e}")
         worst[tag] = (re, im, ge)
+    outs = max(_rel_diff(outputs["GPU"][n], outputs["CPU"][n])
+               for n in outputs["CPU"])
+    check(outs <= 1e-8, f"cavity: outputs GPU vs CPU {outs:.3e}")
     print("[21 eigen parity] " + "; ".join(
         f"{tag}: Re f {re:.3e}, Im f {im:.3e}, elements {ge}"
         for tag, (re, im, ge) in worst.items())
+        + f"; cavity surface-F/Q, farfield-rE and ParaView mode arrays GPU "
+          f"vs CPU {outs:.3e}; phase {time.perf_counter() - t0:.1f} s",
+        flush=True)
+
+
+def _cavity_outputs_case(d: str, dev: str) -> str:
+    """Phase 21's copper cavity with a SurfaceFlux (Electric on z = 0,
+    Power on z = d), an MA Dielectric on the side walls, a FarField on z =
+    0 and the first mode's ParaView fields."""
+    from palace_torch.cases import write_cavity_case
+
+    cfg = write_cavity_case(d, *SMALL_CAVITY_CU, device=dev, verbose=0)
+    with open(cfg) as f:
+        data = json.load(f)
+    data["Boundaries"]["Postprocessing"] = {
+        "SurfaceFlux": [{"Index": 1, "Attributes": [5], "Type": "Electric"},
+                        {"Index": 2, "Attributes": [6], "Type": "Power"}],
+        "Dielectric": [{"Index": 1, "Attributes": [1, 2, 3, 4],
+                        "Type": "MA", "Thickness": 0.002,
+                        "Permittivity": 10.0, "LossTan": 0.001}],
+        "FarField": {"Attributes": [5], "NSample": 4}}
+    data["Solver"]["Eigenmode"]["Save"] = 1
+    with open(cfg, "w") as f:
+        json.dump(data, f)
+    return cfg
+
+
+def _cavity_outputs(res, dev: str) -> dict:
+    """{name: array} of the cavity run's surface-F/Q, farfield-rE tables and
+    its ParaView mode arrays (checked for every field and node)."""
+    post = res["post_dir"]
+    out = {name: _table(os.path.join(post, name)) for name in (
+        "surface-F.csv", "surface-Q.csv", "farfield-rE.csv")}
+    out.update(_check_vtus(f"cavity ({dev})", os.path.join(
+        post, "paraview", "eigenmode"), res["sop"].mesh, 1,
+        ("E_real", "E_imag")))
+    return out
+
+
+class _StepResiduals:
+    """Host residuals ||A k1 - r|| / ||r|| of the transient implicit solves
+    numbered `calls` (from 1) while it is entered: A = M + dt^2 K + dt C and
+    r = f(u, t) - dt K u1 from the TransientOperator's scipy CSRs; the
+    method is restored on exit."""
+
+    def __init__(self, calls):
+        self.calls, self.count, self.resid = set(calls), 0, []
+
+    def __enter__(self):
+        import numpy as np
+
+        from palace_torch.drivers import transient
+
+        self.cls = transient.TransientOperator
+        self.orig = self.cls.implicit_solve
+        orig = self.orig
+
+        def call(op, dt, u1, u2, t):
+            k1, k2 = orig(op, dt, u1, u2, t)
+            self.count += 1
+            if self.count in self.calls:
+                A = op.M + dt * dt * op.K
+                if op.C is not None:
+                    A = A + dt * op.C
+                r = op.rhs(u1, u2, t) - dt * (op.K @ u1)
+                self.resid.append(float(np.linalg.norm(A @ k1 - r)
+                                        / np.linalg.norm(r)))
+            return k1, k2
+
+        self.cls.implicit_solve = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.implicit_solve = self.orig
+
+
+def _envelope_peak(t, v) -> float:
+    """Time of the peak of v's envelope, the modulus of its analytic signal
+    (FFT Hilbert transform), refined by the parabola through the largest
+    sample and its neighbours."""
+    import numpy as np
+
+    n = len(v)
+    h = np.zeros(n)
+    h[0] = 1.0
+    if n % 2 == 0:
+        h[n // 2] = 1.0
+        h[1:n // 2] = 2.0
+    else:
+        h[1:(n + 1) // 2] = 2.0
+    env = np.abs(np.fft.ifft(np.fft.fft(v) * h))
+    k = min(max(int(np.argmax(env)), 1), n - 2)
+    a, b, c = env[k - 1:k + 2]
+    return float(t[k] + 0.5 * (a - c) / (a - 2 * b + c) * (t[1] - t[0]))
+
+
+def _line_post(length: float) -> dict:
+    """A probe at the line's centre and a domain energy over it."""
+    return {"Probe": [{"Index": 1, "Center": [0.5 * length, 5.0, 5.0]}],
+            "Energy": [{"Index": 1, "Attributes": [1]}]}
+
+
+TRANSIENT_TABLES = ("port-V.csv", "port-I.csv", "domain-E.csv",
+                    "probe-E.csv", "probe-B.csv")
+
+
+def phase_transient(workdir: str):
+    """The transient TEM line (GeneralizedAlpha) at full width on the GPU:
+    the matched line carries the pulse from port 1 to port 2 in L / c0 and
+    the energy leaves through the ports; host residuals of three implicit
+    solves; every indicator mass solve on the device CG."""
+    import numpy as np
+
+    from palace_torch.cases import write_tem_line_case
+
+    t_phase = time.perf_counter()
+    length = TEM_LINE[0]
+    nstep = int(round(TEM_MAX_T / TEM_DT)) + 1
+    cfg = write_tem_line_case(
+        os.path.join(workdir, "tem_line"), *TEM_LINE, time_step=TEM_DT,
+        max_time=TEM_MAX_T, domain_post=_line_post(length), device="GPU",
+        verbose=0)
+    with _StepResiduals((1, nstep // 2, nstep - 1)) as steps:
+        res, wall, peak = _gpu_run(cfg, "transient")
+    check(res["num_dofs"] == TEM_LINE_DOFS,
+          f"transient: unexpected dof count {res['num_dofs']}")
+    post, prov = res["post_dir"], res["provenance"]
+    tabs = {name: _table(os.path.join(post, name))
+            for name in TRANSIENT_TABLES}
+    for name, tab in tabs.items():
+        check(tab.shape[0] == nstep, f"transient: {name} has {tab.shape[0]} "
+                                     f"rows, expected {nstep}")
+    _table(os.path.join(post, "error-indicators.csv"))
+    V = tabs["port-V.csv"]
+    t_ns, V1, V2 = V[:, 0], V[:, 2], V[:, 3]
+    ratio = float(np.abs(V2).max() / np.abs(V1).max())
+    check(abs(ratio - 1.0) <= 0.08, f"transient: peak |V2| / peak |V1| "
+                                    f"{ratio:.4f}, not within 8% of 1")
+    transit = length * 1e-3 / C0 * 1e9
+    delay = _envelope_peak(t_ns, V2) - _envelope_peak(t_ns, V1)
+    check(abs(delay / transit - 1.0) <= 0.05,
+          f"transient: envelope delay {delay:.5f} ns against L / c0 "
+          f"{transit:.5f} ns")
+    E = tabs["domain-E.csv"]
+    Etot = E[:, 1] + E[:, 2]
+    check(Etot[-1] < 1e-4 * Etot.max(), f"transient: energy at MaxTime "
+          f"{Etot[-1]:.3e} J, maximum {Etot.max():.3e} J")
+    check(len(steps.resid) == 3 and max(steps.resid) <= 1e-10,
+          f"transient: host residuals {steps.resid}")
+    route = prov.get("estimator_mass_route", {})
+    check(route == {"device-cg": 2 * nstep},
+          f"transient: estimator mass solves {route}")
+    clock = prov["transient_seconds"]
+    per = {k: 1e3 * clock[k] / nstep for k in ("implicit_solve", "energies",
+                                               "indicators")}
+    print(f"[22 transient] TEM line {length:g} mm, box_tet "
+          f"{TEM_LINE[1]}x{TEM_LINE[2]}x{TEM_LINE[2]} p={TEM_LINE[3]}: "
+          f"{res['num_dofs']} dofs, {nstep} steps of {TEM_DT} ns "
+          f"(GeneralizedAlpha); peak |V2| / |V1| {ratio:.4f}, envelope delay "
+          f"{delay:.5f} ns against L / c0 {transit:.5f} ns ("
+          f"{delay / transit - 1.0:+.3e}), energy at MaxTime / maximum "
+          f"{Etot[-1] / Etot.max():.3e}; host residuals "
+          f"{', '.join(f'{r:.2e}' for r in steps.resid)}; estimator mass "
+          f"solves {route}; per step: implicit solve {per['implicit_solve']:.2f}"
+          f" ms, energies and port integrals {per['energies']:.2f} ms, "
+          f"indicators {per['indicators']:.2f} ms; {_durations(post)}, run "
+          f"{wall:.2f} s; peak device memory {peak / 2 ** 30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
+def _both(workdir: str, tag: str, write, names, vtu=None):
+    """Run write(directory, device) on the GPU and on the CPU; returns
+    ({device: {table: array}}, GPU result), with the VTU arrays of `vtu`
+    (a path under paraview/) under its name.  Checks that no indicator
+    mass solve left the device CG and that no structured kernel ran."""
+    import palace_torch
+
+    out, gpu = {}, None
+    for dev in ("GPU", "CPU"):
+        _zero_counts()
+        res = palace_torch.run(write(os.path.join(workdir, f"p23_{tag}_"
+                                                            f"{dev}"), dev))
+        check(_counts() == (0, 0), f"{tag}: structured kernels launched")
+        route = res["provenance"].get("estimator_mass_route", {})
+        check("host-splu" not in route, f"{tag} ({dev}): estimator mass "
+                                        f"solves {route}")
+        post = res["post_dir"]
+        out[dev] = {name: _table(os.path.join(post, name)) for name in names}
+        if "eig.csv" in out[dev]:  # m, Re f, Im f, Q (not the solver's
+            out[dev]["eig.csv"] = out[dev]["eig.csv"][:, :4]  # errors)
+        if vtu is not None:
+            out[dev].update(_vtu_arrays(os.path.join(post, "paraview", vtu)))
+        gpu = gpu or res
+    return out, gpu
+
+
+def phase_transient_parity(workdir: str):
+    """The four transient schemes and the driven surface and far-field
+    tables on the GPU and on the CPU at small sizes (the eigenmode outputs
+    ride on phase 21's cavity); the schemes' lines are LINE's docstring."""
+    import numpy as np
+
+    from palace_torch.cases import write_dipole_case, write_tem_line_case
+
+    t0 = time.perf_counter()
+    worst, v2 = {}, {}
+    for scheme, line in (("GeneralizedAlpha", LINE), ("RungeKutta", LINE),
+                         ("ARKODE", ADAPTIVE_LINE), ("CVODE", ADAPTIVE_LINE)):
+        out, res = _both(workdir, scheme, lambda d, dev: write_tem_line_case(
+            d, *line, scheme=scheme, **LINE_PULSE,
+            domain_post=_line_post(line[0]), device=dev, verbose=0),
+            TRANSIENT_TABLES + ("error-indicators.csv",))
+        g, c = out["GPU"], out["CPU"]
+        for name, gate in [(n, 1e-10) for n in TRANSIENT_TABLES] + [
+                ("error-indicators.csv", 1e-8)]:
+            check(g[name].shape == c[name].shape,
+                  f"{scheme}: {name} shapes {g[name].shape}, {c[name].shape}")
+            d = _rel_diff(g[name], c[name])
+            check(d <= gate, f"{scheme}: {name} GPU vs CPU {d:.3e} > "
+                             f"{gate:.0e}")
+            worst[name] = max(worst.get(name, 0.0), d)
+        v2[scheme, line] = g["port-V.csv"][:, 3]
+    # The adaptive schemes' reference: GeneralizedAlpha on their line.
+    res = _gpu_run(write_tem_line_case(
+        os.path.join(workdir, "p23_ga_adaptive_line"), *ADAPTIVE_LINE,
+        **LINE_PULSE, device="GPU", verbose=0), "GeneralizedAlpha")[0]
+    v2["GeneralizedAlpha", ADAPTIVE_LINE] = _table(os.path.join(
+        res["post_dir"], "port-V.csv"))[:, 3]
+    track = {}
+    for s, line in (("RungeKutta", LINE), ("ARKODE", ADAPTIVE_LINE),
+                    ("CVODE", ADAPTIVE_LINE)):
+        ref = v2["GeneralizedAlpha", line]
+        scale = float(np.abs(ref).max())
+        check(scale > 0, f"{s}: GeneralizedAlpha's V2 is zero")
+        track[s] = float(np.abs(v2[s, line] - ref).max() / scale)
+    check(max(track.values()) < 5e-2,
+          f"schemes against GeneralizedAlpha {track}")
+    parts = {"schemes": time.perf_counter() - t0}
+
+    post = {"SurfaceFlux": [{"Index": 1, "Attributes": [2], "Type": "Power"}],
+            "Dielectric": [{"Index": 1, "Attributes": [2], "Type": "Default",
+                            "Thickness": 0.01, "Permittivity": 10.0,
+                            "LossTan": 0.01}]}
+    out, res = _both(workdir, "surface", lambda d, dev: write_tem_line_case(
+        d, *LINE, problem="Driven", postprocessing=post, device=dev,
+        verbose=0), ("surface-F.csv", "surface-Q.csv"))
+    m = res["measurements"][(1, 0)]
+    flux = m.surf_flux[1].real
+    p, Q = m.surf_q[1]
+    check(abs(flux - 1.0) <= 0.05, f"surface: Power flux {flux:.4f} W")
+    check(abs(Q * 0.01 * p - 1.0) <= 1e-9, f"surface: Q {Q} against "
+                                          f"1 / (p tan delta) {1 / (0.01 * p)}")
+    surf = max(_rel_diff(out["GPU"][n], out["CPU"][n])
+               for n in ("surface-F.csv", "surface-Q.csv"))
+    check(surf <= 1e-8, f"surface: GPU vs CPU {surf:.3e}")
+    parts["surface"] = time.perf_counter() - t0 - sum(parts.values())
+
+    out, res = _both(workdir, "dipole", lambda d, dev: write_dipole_case(
+        d, *DIPOLE, device=dev, verbose=0), ("farfield-rE.csv",))
+    check(res["provenance"].get("solver_path") == "direct",
+          f"dipole: solver path {res['provenance'].get('solver_path')}")
+    rE = res["measurements"][(1, 0)].farfield  # (30, 45), (45, 0), (90, 0)
+    mags = np.linalg.norm(np.abs(rE), axis=1)
+    ratios = (mags[1] / mags[2], mags[0] / mags[2], abs(rE[2, 2]) / mags[2])
+    check(abs(ratios[0] / math.sin(math.radians(45)) - 1) <= 0.1
+          and abs(ratios[1] / math.sin(math.radians(30)) - 1) <= 0.15
+          and abs(ratios[2] - 1) <= 0.1, f"dipole: pattern {ratios}")
+    ff = _rel_diff(out["GPU"]["farfield-rE.csv"], out["CPU"]["farfield-rE.csv"])
+    check(ff <= 1e-8, f"dipole: farfield-rE.csv GPU vs CPU {ff:.3e}")
+    dipole_dofs = res["num_dofs"]
+    parts["dipole"] = time.perf_counter() - t0 - sum(parts.values())
+
+    print("[23 transient parity] " + ", ".join(
+        f"{n} {d:.3e}" for n, d in worst.items())
+        + f" (GPU vs CPU, 4 schemes; GeneralizedAlpha and RungeKutta at "
+          f"{LINE[1]}^3, ARKODE and CVODE at {ADAPTIVE_LINE[1]} x "
+          f"{ADAPTIVE_LINE[2]} x {ADAPTIVE_LINE[2]}); against "
+          f"GeneralizedAlpha on the same line "
+        + ", ".join(f"{s} {d:.3e}" for s, d in track.items())
+        + f"; surface line: Power flux {flux:.5f} W, Q - 1 / (p tan delta) "
+          f"{Q * 0.01 * p - 1.0:+.2e}, GPU vs CPU {surf:.3e}; dipole "
+          f"{dipole_dofs} dofs: |rE| ratios {ratios[0]:.4f} (sin 45 "
+          f"{math.sin(math.radians(45)):.4f}), {ratios[1]:.4f} (0.5), "
+          f"polarization {ratios[2]:.4f}, GPU vs CPU {ff:.3e}; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
         + f"; phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _phases_waveport(workdir: str) -> dict:
+    """Phases 14-17 and 21; returns their kernel launches by path."""
+    wp, S14 = phase_waveport(workdir)
+    wpa = phase_waveport_adaptive(workdir, S14)
+    bdr = phase_boundaries(workdir)
+    phase_waveport_parity(workdir)
+    phase_eigen_parity2(workdir)
+    return dict(waveport=wp, waveport_adaptive=wpa, boundaries=bdr)
+
+
+def _phases_static_eigen(workdir: str) -> dict:
+    """Phases 10-13, 18-20 and 23; returns their kernel launches by
+    path."""
+    mag = phase_magnetostatic(workdir)
+    phase_magnetostatic_reference(workdir)
+    es = phase_electrostatic(workdir)
+    phase_electrostatic_parity(workdir)
+    damped = phase_eigen_damped(workdir)
+    nonlinear = phase_eigen_nonlinear(workdir)
+    amr = phase_amr(workdir)
+    phase_transient_parity(workdir)
+    return dict(magnetostatic=mag, electrostatic=es, eigen_damped=damped,
+                eigen_nonlinear=nonlinear, amr=amr)
+
+
+#: The phase groups that run in processes of their own, by name.
+GROUPS = {"14-17,21": _phases_waveport,
+          "10-13,18-20,23": _phases_static_eigen}
+
+
+def _start_group(name: str, directory: str):
+    """Starts the phase group `name` in a process of its own on the same
+    card, in `directory` (its output goes to this script's output);
+    returns (process, directory)."""
+    os.makedirs(directory)
+    threads = str(THREADS)
+    env = dict(os.environ, OMP_NUM_THREADS=threads, MKL_NUM_THREADS=threads,
+               OPENBLAS_NUM_THREADS=threads)
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             GROUP_FLAG, name, directory], env=env), directory
+
+
+def _check_groups(groups: dict):
+    for name, (proc, _) in groups.items():
+        rc = proc.poll()
+        check(rc in (None, 0), f"phases {name} failed (exit code {rc})")
+
+
+def _join_groups(groups: dict) -> dict:
+    """Waits for every group; returns their kernel launches by path."""
+    paths = {}
+    for name, (proc, directory) in groups.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, DEADLINE_S - (
+                time.perf_counter() - T_START)))
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"phases {name} still running after "
+                               f"{DEADLINE_S:.0f} s")
+        check(rc == 0, f"phases {name} failed (exit code {rc})")
+        with open(os.path.join(directory, GROUP_RESULT)) as f:
+            paths.update(json.load(f))
+    return paths
+
+
+def group_main(name: str, workdir: str) -> int:
+    """Entry point of a group's process: its phases in workdir."""
+    import ctypes
+    import signal
+
+    # Die with the first process, whatever ends it.
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    try:
+        import torch
+
+        torch.set_num_threads(THREADS)
+        by_path = GROUPS[name](workdir)
+    except SmokeFailure as e:
+        print(f"FAILED: {e}", flush=True)
+        return 1
+    with open(os.path.join(workdir, GROUP_RESULT), "w") as f:
+        json.dump(by_path, f)
+    return 0
 
 
 def main() -> int:
@@ -1902,34 +2437,35 @@ def main() -> int:
         phase_build()
         records = phase_kernels()
         with tempfile.TemporaryDirectory() as workdir:
-            by_path = {"structured_apply_flat": {"eigen": 0},
-                       "structured_apply_flat_v2": {"driven": 0,
-                                                    "adaptive": 0}}
-            by_path["structured_apply_flat"]["driven"] = phase_driven(workdir)
-            phase_driven_parity(workdir)
-            by_path["structured_apply_flat_v2"]["eigen"] = phase_eigen(
-                workdir)
-            phase_eigen_parity(workdir)
-            by_path["structured_apply_flat"]["adaptive"] = phase_adaptive(
-                workdir)
-            phase_adaptive_parity(workdir)
-            mag = phase_magnetostatic(workdir)
-            phase_magnetostatic_reference(workdir)
-            es = phase_electrostatic(workdir)
-            phase_electrostatic_parity(workdir)
-            wp, S14 = phase_waveport(workdir)
-            wpa = phase_waveport_adaptive(workdir, S14)
-            bdr = phase_boundaries(workdir)
-            phase_waveport_parity(workdir)
-            damped = phase_eigen_damped(workdir)
-            nonlinear = phase_eigen_nonlinear(workdir)
-            amr = phase_amr(workdir)
-            phase_eigen_parity2(workdir)
+            transient = phase_transient(workdir)
+            torch.set_num_threads(THREADS)
+            groups = {}
+            try:
+                for i, name in enumerate(GROUPS):
+                    groups[name] = _start_group(
+                        name, os.path.join(workdir, f"group{i}"))
+                by_path = {"structured_apply_flat": {"eigen": 0},
+                           "structured_apply_flat_v2": {"driven": 0,
+                                                        "adaptive": 0}}
+                by_path["structured_apply_flat"]["driven"] = phase_driven(
+                    workdir)
+                phase_driven_parity(workdir)
+                _check_groups(groups)
+                by_path["structured_apply_flat_v2"]["eigen"] = phase_eigen(
+                    workdir)
+                phase_eigen_parity(workdir)
+                _check_groups(groups)
+                by_path["structured_apply_flat"]["adaptive"] = (
+                    phase_adaptive(workdir))
+                phase_adaptive_parity(workdir)
+                other_paths = _join_groups(groups)
+            finally:
+                for proc, _ in groups.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
             for name in by_path:
-                by_path[name].update(magnetostatic=mag, electrostatic=es,
-                                     waveport=wp, waveport_adaptive=wpa,
-                                     boundaries=bdr, eigen_damped=damped,
-                                     eigen_nonlinear=nonlinear, amr=amr)
+                by_path[name].update(transient=transient, **other_paths)
     except SmokeFailure as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -1956,4 +2492,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [GROUP_FLAG]:
+        sys.exit(group_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -38,6 +38,18 @@ cube cavity (its lowest mode near 15 GHz, analytic 21.198518 GHz, or a
 box of other sides) and a 10 mm TEM box between two 377 Ohm lumped ports
 at 8 GHz, both on `box_tet` meshes under `Model/Refinement`.
 
+`write_tem_line_case` writes the parallel-plate TEM line of
+tests/test_driven_transient.py:24 with its length and cell counts as
+parameters: a vacuum box_tet line along x, PEC plates on the z faces, PMC
+(natural) sides, and 377 Ohm lumped ports (+Z) at both ends, port 1
+excited; as a Transient run (a ModulatedGaussian pulse by default) or a
+Driven one.  The line is matched, so a pulse crosses it in L / c0 and
+leaves through port 2.  `write_dipole_case` writes the short current
+dipole at the centre of a 60 mm vacuum box ended on all faces by a
+second-order Absorbing boundary, with a FarField on those faces, of
+tests/test_farfield_dipole.py (the infinitesimal dipole's sin theta
+pattern).
+
 `write_rings_case` writes the static checks on `testing/rings.py`'s mesh:
 two concentric coplanar square ribbon loops (half-sides 6 and 24 um, width
 1 um) as interior sheets of a graded 280 um hex box.  "Magnetostatic" is
@@ -136,14 +148,17 @@ def write_waveguide_case(directory: str, n_len: int, n_a: int, n_b: int,
                          order: int, *, termination: str = "waveport",
                          adaptive: bool = False,
                          freq_step: float | None = None, tol: float = 1e-8,
-                         linear: str = "GMG", device: str = "GPU",
-                         verbose: int = 1) -> str:
+                         linear: str = "GMG", save_freqs=(),
+                         postprocessing: dict | None = None,
+                         device: str = "GPU", verbose: int = 1) -> str:
     """Write guide.msh (n_len x n_a x n_b hexes) and case.json of the WR-90
     guide into `directory`; returns the config path.  `termination` ends
     the guide at x = L: "waveport", "conductivity" or "absorbing".  The
     sweep runs 8.2-12.4 GHz in `freq_step` GHz steps (0.6 uniform: 8
     frequencies; 0.05 adaptive: 85, AdaptiveTol 1e-6, AdaptiveMemory 2);
-    the ports' mode solves use EigenTol 1e-12."""
+    the ports' mode solves use EigenTol 1e-12.  `save_freqs` (GHz) are the
+    ParaView `Save` frequencies and `postprocessing` the
+    Boundaries/Postprocessing block."""
     from palace_torch.mesh import gmsh_write
     from palace_torch.mesh.generate import box_hex
 
@@ -169,6 +184,10 @@ def write_waveguide_case(directory: str, n_len: int, n_a: int, n_b: int,
     if adaptive:
         driven.update(AdaptiveTol=1e-6, AdaptiveMaxSamples=20,
                       AdaptiveMemory=2)
+    if save_freqs:
+        driven["Save"] = list(save_freqs)
+    if postprocessing:
+        bdr["Postprocessing"] = postprocessing
     cfg = {
         "Problem": {"Type": "Driven", "Verbose": verbose,
                     "Output": "postpro"},
@@ -411,3 +430,104 @@ def write_rings_case(directory: str, h: float, order: int, *,
     with open(path, "w") as f:
         json.dump(cfg, f, indent=1)
     return path
+
+
+#: Impedance of free space (Ohm) as the TEM line's lumped ports take it.
+ETA0 = 376.730313412
+
+
+def write_tem_line_case(directory: str, length: float, n_len: int,
+                        n_cross: int, order: int, *,
+                        problem: str = "Transient",
+                        scheme: str = "GeneralizedAlpha",
+                        excitation_freq: float = 30.0,
+                        excitation_width: float = 0.02,
+                        max_time: float = 0.3, time_step: float = 0.002,
+                        save_freqs=(),
+                        postprocessing: dict | None = None,
+                        domain_post: dict | None = None,
+                        device: str = "GPU", verbose: int = 1) -> str:
+    """Write box.msh (box_tet n_len x n_cross x n_cross over length x 10 x
+    10 mm) and case.json of the TEM line into `directory`; returns the
+    config path.  A Transient case takes the scheme (Solver/Transient/Type),
+    the ModulatedGaussian pulse (frequency in GHz, width and times in ns),
+    the adaptive schemes at the default RelTol 1e-4 and AbsTol 1e-9; a
+    Driven case runs at
+    15 GHz and takes the ParaView `Save` frequencies.
+    `postprocessing` is the Boundaries/Postprocessing block (SurfaceFlux,
+    Dielectric, ...) and `domain_post` the Domains/Postprocessing block
+    (Probe, Energy)."""
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_tet
+
+    os.makedirs(directory, exist_ok=True)
+    gmsh_write.write(box_tet(n_len, n_cross, n_cross, lx=length, ly=10.0,
+                             lz=10.0), os.path.join(directory, "box.msh"))
+    bdr = {"PEC": {"Attributes": [5, 6]},
+           "LumpedPort": [
+               {"Index": 1, "Attributes": [1], "R": ETA0, "Direction": "+Z",
+                "Excitation": True},
+               {"Index": 2, "Attributes": [2], "R": ETA0, "Direction": "+Z"}]}
+    if postprocessing:
+        bdr["Postprocessing"] = postprocessing
+    solver = {"Order": order, "Device": device,
+              "Linear": {"Tol": 1e-10, "MaxIts": 300}}
+    if problem == "Transient":
+        solver["Transient"] = {
+            "Type": scheme, "Excitation": "ModulatedGaussian",
+            "ExcitationFreq": excitation_freq,
+            "ExcitationWidth": excitation_width, "MaxTime": max_time,
+            "TimeStep": time_step}
+    elif problem == "Driven":
+        solver["Driven"] = {"Samples": [{"Type": "Point", "Freq": [15.0]}]}
+        if save_freqs:
+            solver["Driven"]["Save"] = list(save_freqs)
+    else:
+        raise ValueError(f"TEM line case: unknown problem {problem!r}")
+    domains = {"Materials": [{"Attributes": [1], "Permeability": 1.0,
+                              "Permittivity": 1.0}]}
+    if domain_post:
+        domains["Postprocessing"] = domain_post
+    return _write_config(directory, {
+        "Problem": {"Type": problem, "Verbose": verbose, "Output": "postpro"},
+        "Model": {"Mesh": "box.msh", "L0": 1.0e-3},
+        "Domains": domains,
+        "Boundaries": bdr,
+        "Solver": solver})
+
+
+def write_dipole_case(directory: str, n: int, order: int, *,
+                      device: str = "GPU", verbose: int = 1) -> str:
+    """Write box.msh (box_tet n^3 over a 60 mm cube centred on the origin)
+    and case.json of the z-directed unit current dipole at the origin,
+    second-order Absorbing on all six faces and a FarField there sampled at
+    (theta, phi) = (90, 0), (45, 0) and (30, 45) degrees, at 5 GHz (the
+    box is one wavelength wide); returns the config path."""
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_tet
+
+    size = 60.0
+    os.makedirs(directory, exist_ok=True)
+    mesh = box_tet(n, n, n, lx=size, ly=size, lz=size)
+    mesh.nodes -= 0.5 * size
+    gmsh_write.write(mesh, os.path.join(directory, "box.msh"))
+    faces = [1, 2, 3, 4, 5, 6]
+    return _write_config(directory, {
+        "Problem": {"Type": "Driven", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "box.msh", "L0": 1.0e-3},
+        "Domains": {
+            "Materials": [{"Attributes": [1], "Permeability": 1.0,
+                           "Permittivity": 1.0}],
+            "CurrentDipole": [{"Index": 1, "Moment": 1.0,
+                               "Center": [0.0, 0.0, 0.0],
+                               "Direction": [0, 0, 1]}]},
+        "Boundaries": {
+            "Absorbing": {"Attributes": faces, "Order": 2},
+            "Postprocessing": {
+                "FarField": {"Attributes": faces,
+                             "ThetaPhis": [[90.0, 0.0], [45.0, 0.0],
+                                           [30.0, 45.0]]}}},
+        "Solver": {"Order": order, "Device": device,
+                   "Driven": {"Samples": [{"Type": "Point", "Freq": [5.0]}]},
+                   "Linear": {"Tol": 1e-10, "MaxIts": 300}}})

@@ -1,11 +1,10 @@
-"""Problem drivers of the port (driven sweep, eigenmode, electrostatic and
-magnetostatic so far)."""
+"""Problem drivers of the port (driven sweep, eigenmode, electrostatic,
+magnetostatic and transient)."""
 
 from __future__ import annotations
 
 #: ROADMAP.md port-queue item of each problem type not ported yet.
-_QUEUE = {"Transient": "transient/boundary-mode",
-          "BoundaryMode": "transient/boundary-mode"}
+_QUEUE = {"BoundaryMode": "2D meshes"}
 
 
 def get_driver(problem_type):
@@ -23,6 +22,9 @@ def get_driver(problem_type):
         return solve
     if problem_type is ProblemType.MAGNETOSTATIC:
         from palace_torch.drivers.magnetostatic import solve
+        return solve
+    if problem_type is ProblemType.TRANSIENT:
+        from palace_torch.drivers.transient import solve
         return solve
     unported(f"The {problem_type.value} driver",
              _QUEUE.get(problem_type.value, "Modules to port"))

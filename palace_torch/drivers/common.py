@@ -270,6 +270,7 @@ def compute_error_indicator_h1(iodata: IoData, space, materials,
     flux eps grad V, by global L2 projection of the flux onto the vector H1
     space (Jacobi-CG mass solves on `device`); the fallback of the
     electrostatic driver where the ND grad-flux estimator is not available."""
+    from palace_torch.fem.estimators import count_mass_route
     from palace_torch.fem.operators import default_qorder, h1_operator
     from palace_torch.linalg.iterative import cg
     from palace_torch.linalg.smoothers import jacobi
@@ -306,6 +307,7 @@ def compute_error_indicator_h1(iodata: IoData, space, materials,
     for d in range(sdim):
         res = cg(Mop, torch.as_tensor(rhs[d], device=Mop.device), M=Mprec,
                  tol=1e-10, max_its=500)
+        count_mass_route("device-cg")
         w[d] = res.x.cpu().numpy()
 
     eta2 = np.zeros(sum(b.num_elem for b in mesh.buckets))

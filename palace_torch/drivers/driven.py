@@ -4,10 +4,13 @@ Per sweep: assemble the term-structured system, solve all frequencies of
 each excitation as one blocked FGMRES + p-MG system on the run's device (or
 per frequency with host sparse direct), or, with `AdaptiveTol > 0`, build
 the adaptive PROM (`driven_adaptive.sweep_adaptive`) and evaluate it at
-every frequency; then measure port V/I/S/power, domain energies and probes,
-compute error indicators, and write the reference CSV table set; ports
-are lumped or wave ports, and the system carries the frequency-dependent
-boundary terms A2(omega) on every path.
+every frequency; then measure port V/I/S/power, domain energies, probes,
+surface fluxes, interface-dielectric participation and the Stratton-Chu
+far field (host integrals, `post/{surfaces,farfield}.py`), compute error
+indicators, and write the reference CSV table set and the ParaView fields
+at `SaveFreqs` (`post/paraview.py`); ports are lumped or wave ports, and
+the system carries the frequency-dependent boundary terms A2(omega) on
+every path.
 
 Deliberate divergence from the JAX package: an exception raised on the
 device path propagates; there is no silent re-solve with sparse direct.
@@ -29,13 +32,13 @@ import torch
 from palace_torch.config import IoData, ValueType
 from palace_torch.drivers.amr import adapt_loop, refuse_hex_amr
 from palace_torch.drivers.common import (
-    make_output_dir, nondim_point, prepare_mesh, print_log,
-    write_error_indicators,
+    _surface_bbox_center, make_output_dir, nondim_point, prepare_mesh,
+    print_log, write_error_indicators,
 )
 from palace_torch.mesh.mesh import canonicalize_simplices
 from palace_torch.models.spaceoperator import SpaceOperator
 from palace_torch.post.tables import Column, Table
-from palace_torch.utils import provenance, timers, unported
+from palace_torch.utils import provenance, timers
 
 
 def driven_samples_ghz(iodata: IoData) -> List[float]:
@@ -100,6 +103,9 @@ class StepMeasurement:
     domain_M: Dict[int, float] = field(default_factory=dict)
     probe_E: Optional[np.ndarray] = None  # (nprobe, 3) complex
     probe_B: Optional[np.ndarray] = None
+    surf_flux: Dict[int, complex] = field(default_factory=dict)
+    surf_q: Dict[int, Tuple[float, float]] = field(default_factory=dict)  # (p, Q)
+    farfield: Optional[np.ndarray] = None  # (npts, 3) complex rE
 
 
 def _energy(op, x: np.ndarray, attrs=None) -> float:
@@ -231,17 +237,6 @@ def solve(iodata: IoData, output_dir: str | None = None,
     return result
 
 
-def _check_postprocessing(iodata: IoData):
-    b = iodata.boundaries
-    if b.surface_fluxes or b.dielectrics or (b.farfield is not None
-                                             and b.farfield.attributes):
-        unported("SurfaceFlux / Dielectric / FarField postprocessing",
-                  "surface, far-field and ParaView postprocessing")
-    if iodata.problem.output_formats.paraview and iodata.solver.driven.save_freqs:
-        unported("ParaView field output",
-                  "surface, far-field and ParaView postprocessing")
-
-
 def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
                    device: torch.device = torch.device("cpu")):
     """One full driven sweep + postprocessing on a fixed mesh; returns
@@ -253,7 +248,6 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
                                              grad_flux_indicators)
     from palace_torch.post import metadata
 
-    _check_postprocessing(iodata)
     units = iodata.units
     with timers.block("Operator construction"):
         sop = SpaceOperator(iodata, mesh, device=device)
@@ -313,11 +307,27 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
                 port_fn_cache[idx] = sop.port_functionals(idx)
             return port_fn_cache[idx]
 
-        measurements: Dict[Tuple[int, int], StepMeasurement] = {
-            (ex, i): measure_step(sop, E, omegas[i], ex, port_fn, probe_locs)
-            for (ex, i), E in sols.items()}
+        surf_traces = build_surface_traces(iodata, sop)
+        ff_tb, ff_grid = build_farfield(iodata, sop)
+        measurements: Dict[Tuple[int, int], StepMeasurement] = {}
+        for (ex, i), E in sols.items():
+            m = measure_step(sop, E, omegas[i], ex, port_fn, probe_locs)
+            measure_surfaces(iodata, sop, m, E, omegas[i], surf_traces)
+            if ff_tb is not None:
+                from palace_torch.post.farfield import stratton_chu
+
+                with timers.block("  Far fields"):
+                    m.farfield = stratton_chu(sop, ff_tb, E, omegas[i],
+                                              ff_grid)
+            measurements[(ex, i)] = m
         write_driven_tables(iodata, sop, post_dir, freqs_ghz, excitations,
                             measurements)
+        if ff_tb is not None:
+            write_farfield_table(iodata, sop, post_dir, freqs_ghz,
+                                 excitations, measurements, ff_grid)
+        with timers.block("  Paraview"):
+            write_paraview_fields(iodata, sop, post_dir, freqs_ghz, omegas,
+                                  excitations, sols)
         # Combined grad + curl flux indicators with B = -curl E/(i w).
         eta2_steps, energies = [], []
         for (ex, i), E in sols.items():
@@ -343,6 +353,40 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
                  solutions=sols, omegas=omegas, ksp=ksp_info, prom=prom,
                  provenance=provenance.snapshot()),
             eta2_steps, energies)
+
+
+def nodal_field(space, x: np.ndarray, which: str = "value") -> np.ndarray:
+    """The complex ND field x (or its curl) averaged at the mesh nodes, real
+    and imaginary parts apart: (num_nodes, sdim), for the ParaView output
+    of the driven and eigenmode drivers."""
+    from palace_torch.post.paraview import nodal_average_nd
+
+    return nodal_average_nd(space, np.real(x).copy(), which) \
+        + 1j * nodal_average_nd(space, np.imag(x).copy(), which)
+
+
+def write_paraview_fields(iodata: IoData, sop: SpaceOperator, post_dir: str,
+                          freqs_ghz, omegas, excitations, sols):
+    """ParaView E and B (real and imaginary parts, averaged at the mesh
+    nodes) at the requested save frequencies, one collection per
+    excitation."""
+    save_f = set(round(f, 9) for f in iodata.solver.driven.save_freqs)
+    if not (iodata.problem.output_formats.paraview and save_f):
+        return
+    from palace_torch.post.paraview import ParaviewSaver
+
+    for ex in excitations:
+        pv = ParaviewSaver(post_dir, f"driven_{ex}" if multi_name(
+            excitations) else "driven", sop.mesh)
+        for i, f in enumerate(freqs_ghz):
+            if round(f, 9) not in save_f or (ex, i) not in sols:
+                continue
+            E = sols[(ex, i)]
+            Ev = nodal_field(sop.space, E)
+            Bv = nodal_field(sop.space, E, "curl") * (-1 / (1j * omegas[i]))
+            pv.save(f, {"E_real": np.real(Ev), "E_imag": np.imag(Ev),
+                        "B_real": np.real(Bv), "B_imag": np.imag(Bv)})
+        pv.finalize()
 
 
 #: dof count above which "Default" selects the device iterative path over
@@ -496,13 +540,118 @@ def sweep_uniform_direct(iodata, sop: SpaceOperator, omegas, excitations,
     return sols
 
 
+def multi_name(excitations) -> bool:
+    return len(excitations) > 1
+
+
+def build_surface_traces(iodata: IoData, sop: SpaceOperator):
+    """Boundary traces for SurfaceFlux and Dielectric postprocessing."""
+    from palace_torch.fem.evaluation import boundary_trace
+
+    out = {"flux": {}, "eps": {}}
+    for f in iodata.boundaries.surface_fluxes:
+        center = None
+        if not f.two_sided:
+            center = (nondim_point(iodata, f.center) if f.center is not None
+                      else _surface_bbox_center(sop.mesh, f.attributes))
+        out["flux"][f.index] = boundary_trace(
+            sop.mesh, f.attributes, sop.bdr_qorder, center=center,
+            both_sides=True)
+    for d in iodata.boundaries.dielectrics:
+        out["eps"][d.index] = boundary_trace(
+            sop.mesh, d.attributes, sop.bdr_qorder, both_sides=True)
+    return out
+
+
+def build_farfield(iodata: IoData, sop: SpaceOperator):
+    """(trace basis, (theta, phi) grid) for far-field postprocessing."""
+    ff = iodata.boundaries.farfield
+    if ff is None or not ff.attributes:
+        return None, None
+    from palace_torch.fem.evaluation import boundary_trace
+    from palace_torch.fem.nd_boundary import nd_trace_basis
+    from palace_torch.post.farfield import sample_sphere
+
+    tr = boundary_trace(sop.mesh, ff.attributes, sop.bdr_qorder)
+    tb = nd_trace_basis(sop.space, tr)
+    grid = sample_sphere(ff.n_sample, ff.theta_phis)
+    return tb, grid
+
+
+def write_farfield_table(iodata, sop, post_dir, freqs_ghz, excitations, meas,
+                         grid):
+    """farfield-rE.csv (reference: postoperatorcsv.cpp farfield table)."""
+    units = iodata.units
+    # The reference scales the nondimensional r*E by 1/FIELD_E for output
+    # (postoperatorcsv.cpp:131-132 applies Nondimensionalize<FIELD_E> in
+    # the dimensionalization pass); match its committed data convention.
+    V = 1.0 / units.scale_factor(ValueType.FIELD_E)
+    t = Table()
+    fc = t.add(Column("f", "f (GHz)", min_left_padding=0, precision=8, sign=""))
+    ec = t.add(Column("exc", "exc", min_left_padding=8, print_as_int=True))
+    t.add(Column("theta", "theta (deg.)"))
+    t.add(Column("phi", "phi (deg.)"))
+    for d in ("x", "y", "z"):
+        t.add(Column(f"re{d}", f"r*Re{{E_{d}}} (V)"))
+        t.add(Column(f"im{d}", f"r*Im{{E_{d}}} (V)"))
+    # Reference row order: all frequencies for one excitation, then the
+    # next excitation.
+    for ex in excitations:
+        for i, f in enumerate(freqs_ghz):
+            rE = meas[(ex, i)].farfield
+            for p in range(len(grid)):
+                fc.data.append(f)
+                ec.data.append(ex)
+                t.col("theta").data.append(math.degrees(grid[p, 0]))
+                t.col("phi").data.append(math.degrees(grid[p, 1]))
+                for di, d in enumerate(("x", "y", "z")):
+                    t.col(f"re{d}").data.append(rE[p, di].real * V)
+                    t.col(f"im{d}").data.append(rE[p, di].imag * V)
+    t.write(os.path.join(post_dir, "farfield-rE.csv"))
+
+
+def measure_surfaces(iodata: IoData, sop: SpaceOperator, m: StepMeasurement,
+                     E: np.ndarray, omega: float, traces):
+    """Surface flux + interface dielectric measurements (reference:
+    postoperator.cpp MeasureSurfaceFlux/MeasureInterfaceEFieldEnergy)."""
+    from palace_torch.post.surfaces import surface_flux
+
+    for f in iodata.boundaries.surface_fluxes:
+        m.surf_flux[f.index] = surface_flux(
+            sop, f, traces["flux"][f.index], E, omega=omega)
+    denom = m.E_elec + m.E_cap
+    for d in iodata.boundaries.dielectrics:
+        m.surf_q[d.index] = dielectric_pq(iodata, sop, d,
+                                          traces["eps"][d.index], E, denom)
+
+
+def dielectric_pq(iodata: IoData, sop: SpaceOperator, d, trace,
+                  E: np.ndarray, denom: float) -> Tuple[float, float]:
+    """Participation p of one Dielectric interface in the field energy
+    `denom`, and its Q = 1 / (p tan delta) (inf where p or tan delta is 0);
+    reference: postoperator.cpp MeasureInterfaceEFieldEnergy."""
+    from palace_torch.post.surfaces import interface_energy
+
+    class _D:
+        type = d.type
+        thickness = d.thickness / iodata.units.mesh_length_scale
+        permittivity = d.permittivity
+
+    en = interface_energy(sop, _D, trace, E)
+    p = en / denom if denom > 0 else 0.0
+    Q = (np.inf if (p == 0.0 or d.loss_tan == 0.0)
+         else 1.0 / (d.loss_tan * p))
+    return p, Q
+
+
 # ---------------------------------------------------------------------------
 # CSV output (reference: palace/models/postoperatorcsv.cpp)
 
 
 def write_driven_tables(iodata: IoData, sop: SpaceOperator, post_dir: str,
                         freqs_ghz, excitations, meas):
-    """port-S, port-V, port-I, port-Z, domain-E and probe-E/B tables."""
+    """port-S, port-V, port-I, port-Z, domain-E, surface-F, surface-Q and
+    probe-E/B tables."""
     units = iodata.units
     multi = len(excitations) > 1
 
@@ -643,6 +792,60 @@ def write_driven_tables(iodata: IoData, sop: SpaceOperator, post_dir: str,
                 t.col(f"pm{ecfg.index}_{ex}").data.append(
                     Em / mm.E_mag if mm.E_mag > 0 else 0.0)
     t.write(os.path.join(post_dir, "domain-E.csv"))
+
+    # surface-F
+    if iodata.boundaries.surface_fluxes:
+        Qc = units.scale_factor(ValueType.CAPACITANCE) * units.scale_factor(
+            ValueType.VOLTAGE)
+        Wb = units.scale_factor(ValueType.INDUCTANCE) * units.scale_factor(
+            ValueType.CURRENT)
+        W = units.scale_factor(ValueType.POWER)
+        t = Table()
+        fc = t.add(freq_col())
+        for ex in excitations:
+            sfx = f"[{ex}]" if multi else ""
+            for fcfg in iodata.boundaries.surface_fluxes:
+                i = fcfg.index
+                if fcfg.type == "Electric":
+                    t.add(Column(f"fr{i}_{ex}", f"Re{{Φ_elec[{i}]{sfx}}} (C)"))
+                    t.add(Column(f"fi{i}_{ex}", f"Im{{Φ_elec[{i}]{sfx}}} (C)"))
+                elif fcfg.type == "Magnetic":
+                    t.add(Column(f"fr{i}_{ex}", f"Re{{Φ_mag[{i}]{sfx}}} (Wb)"))
+                    t.add(Column(f"fi{i}_{ex}", f"Im{{Φ_mag[{i}]{sfx}}} (Wb)"))
+                else:
+                    t.add(Column(f"fr{i}_{ex}", f"Φ_pow[{i}]{sfx} (W)"))
+        for i, f in enumerate(freqs_ghz):
+            fc.data.append(f)
+            for ex in excitations:
+                mm = meas[(ex, i)]
+                for fcfg in iodata.boundaries.surface_fluxes:
+                    v = mm.surf_flux[fcfg.index]
+                    scale = {"Electric": Qc, "Magnetic": Wb,
+                             "Power": W}[fcfg.type]
+                    t.col(f"fr{fcfg.index}_{ex}").data.append(v.real * scale)
+                    if fcfg.type != "Power":
+                        t.col(f"fi{fcfg.index}_{ex}").data.append(
+                            v.imag * scale)
+        t.write(os.path.join(post_dir, "surface-F.csv"))
+
+    # surface-Q
+    if iodata.boundaries.dielectrics:
+        t = Table()
+        fc = t.add(freq_col())
+        for ex in excitations:
+            sfx = f"[{ex}]" if multi else ""
+            for d in iodata.boundaries.dielectrics:
+                t.add(Column(f"p{d.index}_{ex}", f"p_surf[{d.index}]{sfx}"))
+                t.add(Column(f"q{d.index}_{ex}", f"Q_surf[{d.index}]{sfx}"))
+        for i, f in enumerate(freqs_ghz):
+            fc.data.append(f)
+            for ex in excitations:
+                mm = meas[(ex, i)]
+                for d in iodata.boundaries.dielectrics:
+                    p, Q = mm.surf_q[d.index]
+                    t.col(f"p{d.index}_{ex}").data.append(p)
+                    t.col(f"q{d.index}_{ex}").data.append(Q)
+        t.write(os.path.join(post_dir, "surface-Q.csv"))
 
     # probe-E / probe-B
     if iodata.domains.probes:

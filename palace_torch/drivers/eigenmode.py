@@ -19,9 +19,8 @@ second-order absorbing boundaries make the problem nonlinear in omega:
 A2(omega) is interpolated by a quadratic Newton polynomial on
 [i omega_t, i omega_u] into the pencil, and each pair found is refined by
 fixed point against the true A2.  With Model/Refinement/MaxIts > 0 the
-solve runs inside the AMR loop on tets (`drivers/amr.py`).  Floquet terms,
-hex-mesh AMR, and the surface, far-field and ParaView outputs raise
-NotImplementedError naming their ROADMAP item.
+solve runs inside the AMR loop on tets (`drivers/amr.py`).  Floquet terms
+and hex-mesh AMR raise NotImplementedError naming their ROADMAP item.
 
 Deliberate divergence from the JAX package: only the non-convergence the
 ARPACK fallback exists for is caught (`quadratic_eigs_jd` returning None,
@@ -33,9 +32,12 @@ falls back quietly.  The path taken is in the provenance (`eigen_path`,
 
 Eigenvectors are normalized to unit M-norm so the per-mode electric field
 energy is 1/2 nondimensional (reference: palace/linalg/slepc.cpp:470-510);
-the run writes eig.csv, domain-E.csv, lumped-port tables, error-indicators.csv
-and palace.json.  As in the driven driver, an exception on the device path
-propagates: there is no quiet host re-solve.
+the run writes eig.csv, domain-E.csv, lumped-port tables, surface-F.csv
+and surface-Q.csv (SurfaceFlux, Dielectric), farfield-rE.csv (FarField,
+Stratton-Chu at the complex omega), error-indicators.csv, palace.json
+and, with `Save` > 0, the ParaView mode fields.  As in the driven driver,
+an exception on the device path propagates: there is no quiet host
+re-solve.
 """
 
 from __future__ import annotations
@@ -73,15 +75,6 @@ def _check_unported(iodata: IoData):
                            np.linalg.norm(b.floquet_wave_vector) > 0):
         unported("Floquet terms of the eigenproblem",
                  "Floquet ports and Floquet eigenmode")
-    if b.surface_fluxes or b.dielectrics or (b.farfield is not None
-                                             and b.farfield.attributes):
-        unported("SurfaceFlux / Dielectric / FarField tables of the "
-                 "eigenmode driver", "eigenmode surface, far-field and "
-                 "ParaView output")
-    if iodata.problem.output_formats.paraview \
-            and iodata.solver.eigenmode.n_post > 0:
-        unported("ParaView mode output", "eigenmode surface, far-field and "
-                 "ParaView output")
 
 
 def _funcA2(sop: SpaceOperator, omega: float):
@@ -471,6 +464,22 @@ def solve(iodata: IoData, output_dir: str | None = None,
         _write_domain_energy(iodata, sop, post_dir, omega, modes)
         if sop.ports:
             _write_port_tables(iodata, sop, post_dir, omega, modes)
+        if iodata.boundaries.surface_fluxes or iodata.boundaries.dielectrics:
+            _write_surface_tables(iodata, sop, post_dir, omega, modes)
+        with timers.block("  Far fields"):
+            _write_farfield_eigen(iodata, sop, post_dir, omega, modes)
+        if iodata.problem.output_formats.paraview and cfg.n_post > 0 \
+                and modes:
+            from palace_torch.drivers.driven import nodal_field
+            from palace_torch.post.paraview import ParaviewSaver
+
+            with timers.block("  Paraview"):
+                pv = ParaviewSaver(post_dir, "eigenmode", mesh)
+                for i in range(min(cfg.n_post, len(modes))):
+                    Ev = nodal_field(space, modes[i])
+                    pv.save(float(i + 1),
+                            {"E_real": np.real(Ev), "E_imag": np.imag(Ev)})
+                pv.finalize()
         write_error_indicators(post_dir, [eta_elem**2], [None])
     from palace_torch.post import metadata
 
@@ -526,6 +535,122 @@ def _write_domain_energy(iodata, sop, post_dir, omega, modes):
             td.col(f"Em{ecfg.index}").data.append(EmA * Escale)
             td.col(f"pm{ecfg.index}").data.append(EmA / Em if Em > 0 else 0.0)
     td.write(os.path.join(post_dir, "domain-E.csv"))
+
+
+def _write_surface_tables(iodata, sop, post_dir, omega, modes):
+    """surface-F.csv / surface-Q.csv per eigenmode (reference:
+    postoperatorcsv.cpp PrintSurfaceF/PrintSurfaceQ with the "m" index
+    column in the eigenmode branch; measurements via postoperator.cpp
+    MeasureSurfaceFlux / MeasureInterfaceEFieldEnergy)."""
+    from palace_torch.drivers.driven import build_surface_traces, dielectric_pq
+    from palace_torch.post.surfaces import surface_flux
+
+    units = iodata.units
+    traces = build_surface_traces(iodata, sop)
+    fluxes = iodata.boundaries.surface_fluxes
+    diels = iodata.boundaries.dielectrics
+
+    if fluxes:
+        Qc = units.scale_factor(ValueType.CAPACITANCE) * units.scale_factor(
+            ValueType.VOLTAGE)
+        Wb = units.scale_factor(ValueType.INDUCTANCE) * units.scale_factor(
+            ValueType.CURRENT)
+        W = units.scale_factor(ValueType.POWER)
+        t = Table()
+        t.add(index_column("m"))
+        for fcfg in fluxes:
+            i = fcfg.index
+            if fcfg.type == "Electric":
+                t.add(Column(f"fr{i}", f"Re{{Φ_elec[{i}]}} (C)"))
+                t.add(Column(f"fi{i}", f"Im{{Φ_elec[{i}]}} (C)"))
+            elif fcfg.type == "Magnetic":
+                t.add(Column(f"fr{i}", f"Re{{Φ_mag[{i}]}} (Wb)"))
+                t.add(Column(f"fi{i}", f"Im{{Φ_mag[{i}]}} (Wb)"))
+            else:
+                t.add(Column(f"fr{i}", f"Φ_pow[{i}] (W)"))
+        for i in range(len(omega)):
+            t.col("i").data.append(float(i + 1))
+            om = abs(float(np.real(omega[i])))
+            for fcfg in fluxes:
+                v = surface_flux(sop, fcfg, traces["flux"][fcfg.index],
+                                 modes[i], omega=om)
+                scale = {"Electric": Qc, "Magnetic": Wb, "Power": W}[fcfg.type]
+                t.col(f"fr{fcfg.index}").data.append(v.real * scale)
+                if fcfg.type != "Power":
+                    t.col(f"fi{fcfg.index}").data.append(v.imag * scale)
+        t.write(os.path.join(post_dir, "surface-F.csv"))
+
+    if diels:
+        t = Table()
+        t.add(index_column("m"))
+        for d in diels:
+            t.add(Column(f"p{d.index}", f"p_surf[{d.index}]"))
+            t.add(Column(f"q{d.index}", f"Q_surf[{d.index}]"))
+        for i in range(len(omega)):
+            x = modes[i]
+            Ee = 0.5 * _quad(sop.M_re, x)
+            E_cap = 0.0
+            for idx, port in sop.ports.items():
+                if abs(port.C) > 0:
+                    s, v = sop.port_functionals(idx)
+                    V = complex(np.dot(v, x))
+                    E_cap += 0.5 * abs(port.C) * float(np.real(V * np.conj(V)))
+            denom = Ee + E_cap
+            t.col("i").data.append(float(i + 1))
+            for d in diels:
+                p, Q = dielectric_pq(iodata, sop, d, traces["eps"][d.index],
+                                     x, denom)
+                t.col(f"p{d.index}").data.append(p)
+                # palace_tpu's eigenmode table writes 0 for an infinite Q
+                # (its driven table writes inf).
+                t.col(f"q{d.index}").data.append(Q if np.isfinite(Q) else 0.0)
+        t.write(os.path.join(post_dir, "surface-Q.csv"))
+
+
+def _write_farfield_eigen(iodata, sop, post_dir, omega, modes):
+    """farfield-rE.csv per eigenmode (reference: postoperatorcsv.cpp
+    InitializeFarFieldE/PrintFarFieldE EIGENMODE branch: m, f_re, f_im,
+    exc=0, theta, phi, r*E components).  The Stratton-Chu prefactor, phase
+    and B = -curl E/(i omega) use the full complex omega (reference:
+    postoperator.cpp:1438-1440, strattonchu.cpp:101-140).  Inherited: a
+    mode with Re omega < 0 is mirrored by negating the whole omega, which
+    also flips Im omega (the driver keeps only Re omega > 0)."""
+    from palace_torch.drivers.driven import build_farfield
+    from palace_torch.post.farfield import stratton_chu
+
+    tb, grid = build_farfield(iodata, sop)
+    if tb is None:
+        return
+    units = iodata.units
+    ghz = units.scale_factor(ValueType.FREQUENCY)
+    V = 1.0 / units.scale_factor(ValueType.FIELD_E)
+    t = Table()
+    t.add(index_column("m"))
+    t.add(Column("fre", "f_re (GHz)"))
+    t.add(Column("fim", "f_im (GHz)"))
+    t.add(Column("exc", "exc", min_left_padding=2, print_as_int=True))
+    t.add(Column("theta", "theta (deg.)", min_left_padding=2))
+    t.add(Column("phi", "phi (deg.)", min_left_padding=2))
+    for d in ("x", "y", "z"):
+        t.add(Column(f"re{d}", f"r*Re{{E_{d}}} (V)"))
+        t.add(Column(f"im{d}", f"r*Im{{E_{d}}} (V)"))
+    for i in range(len(omega)):
+        f = omega[i] / (2 * math.pi) * ghz
+        om_i = complex(omega[i])
+        if om_i.real < 0:
+            om_i = -om_i
+        rE = stratton_chu(sop, tb, modes[i], om_i, grid)
+        for p in range(len(grid)):
+            t.col("i").data.append(float(i + 1))
+            t.col("fre").data.append(float(np.real(f)))
+            t.col("fim").data.append(float(np.imag(f)))
+            t.col("exc").data.append(0.0)
+            t.col("theta").data.append(math.degrees(grid[p, 0]))
+            t.col("phi").data.append(math.degrees(grid[p, 1]))
+            for di, d in enumerate(("x", "y", "z")):
+                t.col(f"re{d}").data.append(rE[p, di].real * V)
+                t.col(f"im{d}").data.append(rE[p, di].imag * V)
+    t.write(os.path.join(post_dir, "farfield-rE.csv"))
 
 
 def _write_port_tables(iodata, sop, post_dir, omega, modes):

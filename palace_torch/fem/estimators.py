@@ -19,14 +19,27 @@ from palace_torch.fem.operators import default_qorder
 from palace_torch.linalg.iterative import cg
 from palace_torch.linalg.smoothers import jacobi
 from palace_torch.mesh import geometry as geom_mod
-from palace_torch.utils import unported
+from palace_torch.utils import provenance, unported
+
+
+def count_mass_route(route: str):
+    """Count one flux-recovery mass solve under `route` ("device-cg" or
+    "host-splu") in the provenance's `estimator_mass_route`."""
+    counts = dict(provenance.snapshot().get("estimator_mass_route", {}))
+    counts[route] = counts.get(route, 0) + 1
+    provenance.record("estimator_mass_route", counts)
+
+
+#: Jacobi-CG iteration cap of the flux-recovery mass solves; a solve that
+#: reaches it switches its operator to sparse direct.
+MASS_CG_MAX_ITS = 1500
 
 
 def _solver(op):
     """Mass solve for the flux recovery: Jacobi-CG on the operator's device;
     once CG stalls (high order, curved elements) factor the assembled matrix
     and stay sparse-direct, since an unconverged recovery inflates every
-    indicator."""
+    indicator.  Every solve counts its route in the provenance."""
     prec = jacobi(op.diagonal())
     state = {}
 
@@ -34,12 +47,14 @@ def _solver(op):
         if "lu" not in state:
             res = cg(op, torch.as_tensor(np.ascontiguousarray(v),
                                          device=op.device),
-                     M=prec, tol=1e-10, max_its=1500)
+                     M=prec, tol=1e-10, max_its=MASS_CG_MAX_ITS)
             if res.converged:
+                count_mass_route("device-cg")
                 return res.x.cpu().numpy()
             from scipy.sparse.linalg import splu
 
             state["lu"] = splu(op.assemble_csr().tocsc())
+        count_mass_route("host-splu")
         return state["lu"].solve(np.asarray(v))
 
     return solve

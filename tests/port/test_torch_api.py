@@ -17,7 +17,7 @@ from palace_torch.cases import (write_adaptive_case, write_amr_driven_case,
                                  write_amr_eigen_case, write_cavity_case,
                                  write_eigen_case, write_guide_eigen_case,
                                  write_rings_case, write_slice_case,
-                                 write_waveguide_case)
+                                 write_tem_line_case, write_waveguide_case)
 from palace_torch.config import IoData
 from palace_torch.device import resolve_device
 from palace_torch.drivers import driven
@@ -120,7 +120,7 @@ def test_solver_routing(tmp_path):
 
 @pytest.mark.parametrize("feature,item", [
     ("amr", "nonconforming ND AMR"),
-    ("paraview", "surface, far-field and ParaView postprocessing"),
+    ("paraview", None),  # ported: the driven sweep writes its VTU files
     ("floquet", "Floquet ports and Floquet eigenmode"),
 ])
 def test_unported_features_name_roadmap_item(tmp_path, feature, item):
@@ -132,7 +132,13 @@ def test_unported_features_name_roadmap_item(tmp_path, feature, item):
         iodata.boundaries.floquet_wave_vector = [0.1, 0.0, 0.0]
     else:
         iodata.problem.output_formats.paraview = True
-        iodata.solver.driven.save_freqs = [2.0]
+        iodata.solver.driven.save_freqs = [2.0, 5.5]
+    if item is None:
+        driven.solve(iodata, output_dir=str(tmp_path / "out"))
+        pv = tmp_path / "out" / "paraview" / "driven"
+        assert sorted(os.listdir(pv)) == ["driven.pvd", "driven_0000.vtu",
+                                          "driven_0001.vtu"]
+        return
     with pytest.raises(NotImplementedError, match=item):
         driven.solve(iodata, output_dir=str(tmp_path / "out"))
 
@@ -157,12 +163,22 @@ def test_frequency_dependent_boundaries_are_ported(tmp_path, termination,
 
 
 @pytest.mark.parametrize("ptype,item", [
-    ("TRANSIENT", "transient/boundary-mode"),
+    ("TRANSIENT", None),  # ported: routes to drivers/transient.py
+    ("BOUNDARY_MODE", "2D meshes"),
 ])
-def test_unported_drivers_name_roadmap_item(ptype, item):
+def test_unported_drivers_name_roadmap_item(tmp_path, ptype, item):
     from palace_torch.config import ProblemType
-    from palace_torch.drivers import get_driver
+    from palace_torch.drivers import get_driver, transient
 
+    if item is None:
+        assert get_driver(getattr(ProblemType, ptype)) is transient.solve
+        cfg = write_tem_line_case(str(tmp_path), 10.0, 2, 2, 1,
+                                  max_time=0.004, device="CPU", verbose=0)
+        assert cli_main([cfg, "-o", str(tmp_path / "out")]) == 0
+        v = np.loadtxt(tmp_path / "out" / "port-V.csv", delimiter=",",
+                       skiprows=1)
+        assert v.shape == (3, 4) and np.isfinite(v).all()
+        return
     with pytest.raises(NotImplementedError, match=item):
         get_driver(getattr(ProblemType, ptype))
 
@@ -170,7 +186,8 @@ def test_unported_drivers_name_roadmap_item(ptype, item):
 def test_lint_clean():
     paths = [os.path.join(REPO, p) for p in
              ("palace_torch", "chip_smoke.py", "tests/port",
-              "scripts/profile_torch_slice.py")]
+              "scripts/profile_torch_slice.py",
+              "scripts/rehearse_smoke_cpu.py")]
     proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts",
                                                         "lint.py"), *paths],
                           capture_output=True, text=True)

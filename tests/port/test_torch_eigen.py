@@ -187,37 +187,38 @@ def test_host_eigen_matches_jax_package(tmp_path):
 
 
 #: Feature -> (the ROADMAP item its refusal names, or None once it is
-#: ported, the config edit).  The damped and nonlinear branches are ported
-#: and must now run; eigenmode AMR runs on tets, and the hex box of
-#: `write_eigen_case` is refused as nonconforming ND AMR.
+#: ported, the config edit, and for a ported output the file it writes).
+#: The damped and nonlinear branches are ported and must now run, as must
+#: the surface, far-field and ParaView outputs; eigenmode AMR runs on
+#: tets, and the hex box of `write_eigen_case` is refused as nonconforming
+#: ND AMR.
 _UNPORTED = {
     "damped": (None, lambda c: c["Boundaries"].update(
         PEC={"Attributes": [2, 3, 4, 5, 6]},
-        Impedance=[{"Attributes": [1], "Rs": 50.0}])),
+        Impedance=[{"Attributes": [1], "Rs": 50.0}]), None),
     "nonlinear": (None, lambda c: c["Boundaries"].update(
         PEC={"Attributes": [2, 3, 4, 5, 6]},
-        Absorbing={"Attributes": [1], "Order": 2})),
+        Absorbing={"Attributes": [1], "Order": 2}), None),
     "floquet": ("Floquet eigenmode", lambda c: c["Boundaries"].update(
-        Periodic={"FloquetWaveVector": [0.1, 0.0, 0.0]})),
-    "surface": ("eigenmode surface, far-field and ParaView output",
-                lambda c: c["Boundaries"].update(Postprocessing={
-                    "SurfaceFlux": [{"Index": 1, "Attributes": [1],
-                                     "Type": "Electric"}]})),
-    "farfield": ("eigenmode surface, far-field and ParaView output",
-                 lambda c: c["Boundaries"].update(Postprocessing={
-                     "FarField": {"Attributes": [1]}})),
-    "paraview": ("eigenmode surface, far-field and ParaView output",
-                 lambda c: c["Solver"]["Eigenmode"].update(Save=1)),
+        Periodic={"FloquetWaveVector": [0.1, 0.0, 0.0]}), None),
+    "surface": (None, lambda c: c["Boundaries"].update(Postprocessing={
+        "SurfaceFlux": [{"Index": 1, "Attributes": [1],
+                         "Type": "Electric"}]}), "surface-F.csv"),
+    "farfield": (None, lambda c: c["Boundaries"].update(Postprocessing={
+        "FarField": {"Attributes": [1]}}), "farfield-rE.csv"),
+    "paraview": (None, lambda c: c["Solver"]["Eigenmode"].update(Save=1),
+                 "paraview/eigenmode/eigenmode_0000.vtu"),
     "amr": ("nonconforming ND AMR",
-            lambda c: c["Model"].update(Refinement={"MaxIts": 1})),
+            lambda c: c["Model"].update(Refinement={"MaxIts": 1}), None),
 }
 
 
 @pytest.mark.parametrize("feature", sorted(_UNPORTED))
 def test_unported_eigen_branches_name_roadmap_item(tmp_path, feature):
     """A refused branch names its ROADMAP item; a ported one runs (at 3^3:
-    the JD seed asks for more vectors than the 2^3 box has)."""
-    item, edit = _UNPORTED[feature]
+    the JD seed asks for more vectors than the 2^3 box has) and writes its
+    output."""
+    item, edit, written = _UNPORTED[feature]
     path = write_eigen_case(str(tmp_path), 2 if item else 3, 1,
                             linear="SuperLU", device="CPU", verbose=0)
     with open(path) as f:
@@ -227,9 +228,15 @@ def test_unported_eigen_branches_name_roadmap_item(tmp_path, feature):
         json.dump(cfg, f)
     if item is None:
         res = palace_torch.run(path)
-        assert res["provenance"]["eigen_path"] == "quadratic-jd"
         f = np.asarray(res["frequencies_ghz"])
-        assert len(f) == 4 and (f.real > 5.0).all() and (f.imag > 0).all()
+        assert len(f) == 4 and (f.real > 5.0).all()
+        if written is not None:
+            assert res["provenance"]["eigen_path"] == "host-arpack"
+            assert os.path.getsize(os.path.join(res["post_dir"],
+                                                written)) > 0
+            return
+        assert res["provenance"]["eigen_path"] == "quadratic-jd"
+        assert (f.imag > 0).all()
         return
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         palace_torch.run(path)

@@ -2,7 +2,7 @@
 
 - Statically: an AST scan of every palace_torch source, chip_smoke.py and
   the port's scripts (profile_torch_slice.py, mutate_kernels.py,
-  ab_kernel_core.py) finds no import of jax, jaxlib or
+  ab_kernel_core.py, rehearse_smoke_cpu.py) finds no import of jax, jaxlib or
   palace_tpu, function-level imports and string imports (`__import__`,
   `importlib.import_module`) included; nor does any of them load a
   module from a file path (`spec_from_file_location`, `runpy.run_path`),
@@ -14,8 +14,9 @@
   host solve), the WR-90 guide between two wave ports (device solver) and
   its adaptive sweep ended by a second-order absorbing boundary, the
   copper-walled cavity (damped eigen branch), the shorted guide's
-  nonlinear eigenproblem and a driven tet AMR loop run on the CPU, and
-  neither package is in sys.modules at the end.  The eigenmode device branch runs
+  nonlinear eigenproblem, a driven tet AMR loop, a transient TEM line, the
+  driven line's surface tables and ParaView output and the dipole's far
+  field run on the CPU, and neither package is in sys.modules at the end.  The eigenmode device branch runs
   under the same guard in test_torch_eigen.py."""
 
 import ast
@@ -110,6 +111,23 @@ res = palace_torch.run(write_amr_driven_case(
     os.path.join(sys.argv[1], "amr_d"), 2, 1, linear="Default", device="CPU",
     verbose=0))
 assert res["amr_iterations"] == 1
+from palace_torch.cases import write_dipole_case, write_tem_line_case
+
+res = palace_torch.run(write_tem_line_case(
+    os.path.join(sys.argv[1], "line"), 10.0, 2, 2, 1, max_time=0.004,
+    device="CPU", verbose=0))
+assert len(res["rows"]) == 3
+res = palace_torch.run(write_tem_line_case(
+    os.path.join(sys.argv[1], "line_d"), 10.0, 2, 2, 1, problem="Driven",
+    save_freqs=[15.0], postprocessing={
+        "SurfaceFlux": [{"Index": 1, "Attributes": [2], "Type": "Power"}],
+        "Dielectric": [{"Index": 1, "Attributes": [2], "Thickness": 0.01,
+                        "Permittivity": 10.0, "LossTan": 0.01}]},
+    device="CPU", verbose=0))
+assert os.path.exists(os.path.join(res["post_dir"], "surface-Q.csv"))
+res = palace_torch.run(write_dipole_case(
+    os.path.join(sys.argv[1], "dipole"), 2, 1, device="CPU", verbose=0))
+assert res["measurements"][(1, 0)].farfield.shape == (3, 3)
 assert not any(k.split(".")[0] in REFUSED for k in sys.modules)
 print("NOJAX-OK")
 """
@@ -119,7 +137,7 @@ def _sources():
     out = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "scripts", name) for name in (
             "profile_torch_slice.py", "mutate_kernels.py",
-            "ab_kernel_core.py")]
+            "ab_kernel_core.py", "rehearse_smoke_cpu.py")]
     for d, _, files in os.walk(os.path.join(REPO, "palace_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
