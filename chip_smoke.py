@@ -163,15 +163,55 @@ result line):
      dipole in its ABC2 box (box_tet 7^3, Order 2, 14,546 dofs, sparse
      direct): the sin theta pattern
      (0.1 and 0.15) and polarization (0.1) on the GPU, farfield-rE.csv
-     within 1e-8.
-Neither structured-apply kernel runs on phases 10-23 (element-mode
+     within 1e-8;
+ 24. Floquet eigenmode: the 1 cm cube periodic in x with PEC y and z faces
+     at FloquetWaveVector [2, 0, 0] /cm (box_tet 6^3, Order 3, 25,506
+     dofs, 2 modes at Target 17 GHz, Tol 1e-9) on the GPU; checks the host
+     shift-invert path (ARPACK, which="LR") with every indicator mass
+     solve (the Floquet RT projection of k x E included) on the device CG,
+     the forward pair within 1e-4 of f1 = c0 sqrt(pi^2 + k^2) / (2 pi L) =
+     17.76940 GHz with |Im f| < 1e-6 f1, the backward branch (2 pi - k;
+     a second solve at Target 24.5 GHz, at box_tet 4^3) within 1e-3 of
+     25.34446 GHz, and E_mag / E_elec within 1e-6 of 1 per mode (the
+     Floquet magnetic energy included; 0.29 off without it, printed); the
+     cube at box_tet 3^3, Order 2
+     on the GPU and on the CPU: frequencies within 1e-9;
+ 25. Bloch-phase driven sweep: the same cube at box_tet 8^3, Order 3
+     (59,544 dofs), tan delta 0.01, a z current dipole at (0.3, 0.45, 0.55)
+     cm, 0.9 f1, f1 and 1.1 f1, GMG Tol 1e-8, on the GPU; checks the device
+     solver on every column (no direct re-solve) on the element fine level
+     with the Floquet tables, every relres and the host residual against
+     scipy's A(omega) with the Floquet terms, every column's reactive power
+     balance Re x^H b = 2 omega^2 (E_mag - E_elec) within 1e-6 (E_mag with
+     the Floquet magnetic energy; E_elec / E_mag at the resonance f1 is
+     printed, not gated: the point dipole's near field adds electric
+     energy), every indicator mass solve on the device CG;
+     prints the element fine level's apply (its device time at this shape,
+     its bound and its calls); the cube at box_tet 4^3, Order 2 with
+     FloquetReferenceFrequency 15 GHz: domain-E.csv GPU against CPU within
+     1e-8, and its adaptive sweep (AdaptiveTol 1e-6, 14-17 GHz in 0.1 GHz
+     steps) against the uniform one within 1e-4;
+ 26. Floquet ports: the 1 x 1 x 2 cm cell periodic in x and y between
+     Floquet port 1 (z = 2 cm, excited, TE, MaxOrder 1) and port 2 (z = 0)
+     at 12 GHz (box_tet 4 x 4 x 8, Order 3, 14,544 dofs; host sparse direct
+     with the Woodbury correction of the diffraction orders) on the GPU,
+     three runs: (a) empty, normal incidence: |T| within 1e-4 of 1, |R| <
+     1e-3, the sum of |S|^2 over the propagating orders within 1e-4 of 1,
+     arg T within 0.2 deg of -k0 d; (b) oblique, k_F (0.9, 0, 0) /cm with
+     FloquetReferenceFrequency 12 GHz (sin theta 0.3579): |T| within 1e-3
+     of 1, arg T within 0.5 deg of -k_z d; (c) an eps_r 4 slab over 0.75
+     <= z <= 1.25 cm: |T|^2 within 2e-3 of the Airy value 0.83794, |R|^2 +
+     |T|^2 within 1e-4 of 1; the empty cell at box_tet 3 x 3 x 6, Order 2
+     on the GPU and on the CPU: port-floquet-S.csv within 1e-8.
+Neither structured-apply kernel runs on phases 10-26 (element-mode
 operators and the element fine level, plain torch; the transient step is
-a host splu); the kernel record counts their launches there (0).
+a host splu, the Floquet eigensolve ARPACK and the Floquet-port solves
+sparse direct); the kernel record counts their launches there (0).
 Peak device memory is each run's own: its peak above what was allocated
 when it started (`_memory_mark`).
 Phases 1-3 and then 22 run alone; after them the phases run in three
-processes on the one card: phases 4-9 in this one, phases 14-17 and 21
-and phases 10-13, 18-20 and 23 in two more (`python3 chip_smoke.py --phases
+processes on the one card: phases 4-9 and 24 in this one, phases 14-17,
+21 and 26 and phases 10-13, 18-20, 23 and 25 in two more (`python3 chip_smoke.py --phases
 GROUP DIR`, which the script starts itself and stops with it), so that
 their lines interleave and their times include the other processes'
 share of the card and of the host; each process counts its own kernel
@@ -323,6 +363,24 @@ TEM_DT, TEM_MAX_T = 0.002, 0.25
 #: solves took 40 s a run on the CPU; on the CPU at 7^3 the |rE| ratios
 #: are 1.6% and 7.4% from sin 45 and sin 30, at 8^3 0.8% and 0.7%).
 LINE, ADAPTIVE_LINE = (10.0, 6, 6, 2), (10.0, 4, 3, 2)
+#: Phases 24-26's Floquet cases (palace_torch/cases.py): the 1 cm cube
+#: periodic in x with PEC y and z faces at Floquet wave number FLOQUET_K
+#: (1/cm), box_tet n^3 and the order, and their ND dofs; the eigen case at
+#: FLOQUET_BOX, the Bloch-phase dipole sweep at FLOQUET_DIPOLE; the small
+#: GPU-against-CPU cases; and the Floquet-port cell (box_tet n x n x 2n
+#: over 1 x 1 x 2 cm, periodic in x and y) at 12 GHz, its small case, and
+#: the dielectric slab (z0, z1 in cm, eps_r) of run (c).
+FLOQUET_K = 2.0
+FLOQUET_BOX, FLOQUET_BOX_DOFS = (6, 3), 25506
+#: The backward branch's solve, cut from FLOQUET_BOX so that phases 24-26
+#: fit next to phases 4-23 (on the H100 the two host shift-invert solves
+#: at 6^3 took 161.8 s of phase 24; the backward mode's error is 8.342e-6
+#: at 6^3 and 8.843e-5 at 4^3, Order 3, on the CPU; gate 1e-3).
+FLOQUET_BACK, FLOQUET_BACK_DOFS = (4, 3), 7788
+FLOQUET_DIPOLE, FLOQUET_DIPOLE_DOFS = (8, 3), 59544
+SMALL_FLOQUET_BOX, SMALL_FLOQUET_DIPOLE = (3, 2), (4, 2)
+FLOQUET_CELL, FLOQUET_CELL_DOFS, SMALL_FLOQUET_CELL = (4, 3), 14544, (3, 2)
+FLOQUET_CELL_F, FLOQUET_SLAB = 12.0, (0.75, 1.25, 4.0)
 LINE_PULSE = dict(excitation_freq=10.0, excitation_width=0.08,
                   max_time=0.06, time_step=0.005)
 DIPOLE = (7, 2)
@@ -925,9 +983,11 @@ def phase_eigen_parity(workdir: str):
 def _host_residual(sop, E, omega, ex, KCM) -> float:
     """||b - A(omega) E|| / ||b|| with scipy's CSRs (no torch): A = K +
     i omega C - omega^2 M plus the frequency-dependent boundary terms (wave
-    ports i Re kn Mwp, Conductivity, second-order Absorbing), PEC rows and
-    columns replaced by the identity as `system_csr` does, applied term by
-    term; b = i omega rhs1 plus the wave-port rhs2."""
+    ports i Re kn Mwp, Conductivity, second-order Absorbing) and the Floquet
+    volume terms (in K, or omega^2 Fm + i omega Fc under
+    FloquetReferenceFrequency), PEC rows and columns replaced by the
+    identity as `system_csr` does, applied term by term; b = i omega rhs1
+    plus the wave-port rhs2."""
     import numpy as np
 
     K, C, M = KCM
@@ -939,6 +999,9 @@ def _host_residual(sop, E, omega, ex, KCM) -> float:
     Ax = K @ x - (omega * omega) * (M @ x)
     if C is not None:
         Ax = Ax + 1j * omega * (C @ x)
+    if sop.K_flo_mass is not None and sop.floquet_omega_ref > 0.0:
+        Fm, Fc = sop.floquet_csrs()  # else in K
+        Ax = Ax + (omega * omega) * (Fm @ x) + 1j * omega * (Fc @ x)
     A2 = sop.a2_csr(omega)
     if A2 is not None:
         Ax = Ax + A2 @ x
@@ -2345,18 +2408,312 @@ def phase_transient_parity(workdir: str):
         + f"; phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _nan_rel_diff(a, b, floor: float = 1.0) -> float:
+    """Max over columns of max |a - b| / max(max |b|, floor), over the
+    entries that are not NaN; a and b must be NaN in the same places (an
+    evanescent diffraction order prints NaN)."""
+    import numpy as np
+
+    check(a.shape == b.shape and (np.isnan(a) == np.isnan(b)).all(),
+          f"tables differ in shape or NaN pattern ({a.shape}, {b.shape})")
+    worst = 0.0
+    for j in range(b.shape[1]):
+        ok = ~np.isnan(b[:, j])
+        if ok.any():
+            s = max(float(np.abs(b[ok, j]).max()), floor)
+            worst = max(worst, float(np.abs(a[ok, j] - b[ok, j]).max()) / s)
+    return worst
+
+
+def _device_route(tag: str, prov) -> dict:
+    """The indicators' mass solves, all on the device CG."""
+    route = prov.get("estimator_mass_route", {})
+    check(set(route) == {"device-cg"}, f"{tag}: estimator mass solves "
+                                       f"{route}")
+    return route
+
+
+def phase_floquet_eigen(workdir: str):
+    """The Floquet eigenproblem of tests/test_floquet.py on the x-periodic
+    PEC cube at full depth: the forward pair and the backward branch
+    against the analytic Bloch modes, E_elec = E_mag per mode (the Floquet
+    magnetic energy included), host shift-invert with every indicator mass
+    solve on the device CG; the small cube GPU against CPU."""
+    import numpy as np
+
+    import palace_torch
+    from palace_torch.cases import floquet_box_freq, write_floquet_box_case
+    from palace_torch.drivers.driven import _energy
+
+    t_phase = time.perf_counter()
+    n, p = FLOQUET_BOX
+    f1 = floquet_box_freq(FLOQUET_K)
+    fb = floquet_box_freq(FLOQUET_K, -1)
+    res, wall, peak = _gpu_run(write_floquet_box_case(
+        os.path.join(workdir, "flo_eig"), n, p, kx=FLOQUET_K, device="GPU",
+        verbose=0), "floquet-eigen")
+    check(res["num_dofs"] == FLOQUET_BOX_DOFS,
+          f"floquet-eigen: unexpected dof count {res['num_dofs']}")
+    prov = res["provenance"]
+    check(prov.get("eigen_path") == "host-arpack",
+          f"floquet-eigen: eigen path {prov.get('eigen_path')}")
+    route = _device_route("floquet-eigen", prov)
+    f = np.asarray(res["frequencies_ghz"])
+    check(len(f) == 2, f"floquet-eigen: {len(f)} modes")
+    err = float(np.abs(f.real / f1 - 1.0).max())
+    im = float(np.abs(f.imag).max() / f1)
+    check(err <= 1e-4, f"floquet-eigen: forward pair {f.real} against f1 "
+                       f"{f1:.6f} GHz, error {err:.3e} > 1e-4")
+    check(im < 1e-6, f"floquet-eigen: |Im f| / f1 {im:.3e}")
+    dom = _table(os.path.join(res["post_dir"], "domain-E.csv"))
+    ratio = float(np.abs(dom[:, 2] / dom[:, 1] - 1.0).max())
+    check(ratio <= 1e-6, f"floquet-eigen: E_mag / E_elec - 1 {ratio:.3e}")
+    sop = res["sop"]
+    bare = max(abs(_energy(sop.K_dom, x) / (abs(_omega(sop, fi)) ** 2
+                                            * _energy(sop.M_re, x)) - 1.0)
+               for x, fi in zip(res["modes"].T, f))
+    back, _, _ = _gpu_run(write_floquet_box_case(
+        os.path.join(workdir, "flo_eig_back"), *FLOQUET_BACK, kx=FLOQUET_K,
+        target=24.5, modes=1, device="GPU", verbose=0), "floquet-backward")
+    check(back["num_dofs"] == FLOQUET_BACK_DOFS,
+          f"floquet-eigen: backward case dof count {back['num_dofs']}")
+    fbk = float(np.real(back["frequencies_ghz"][0]))
+    check(abs(fbk / fb - 1.0) <= 1e-3, f"floquet-eigen: backward mode "
+          f"{fbk:.6f} GHz against {fb:.6f}")
+    freqs = {}
+    for dev in ("GPU", "CPU"):
+        r = palace_torch.run(write_floquet_box_case(
+            os.path.join(workdir, f"flo_eig_{dev}"), *SMALL_FLOQUET_BOX,
+            kx=FLOQUET_K, device=dev, verbose=0))
+        freqs[dev] = np.asarray(r["frequencies_ghz"])
+    par = float(np.abs(freqs["GPU"] - freqs["CPU"]).max()
+                / np.abs(freqs["CPU"]).max())
+    check(par <= 1e-9, f"floquet-eigen: GPU vs CPU frequencies {par:.3e}")
+    print(f"[24 floquet-eigen] x-periodic cube, k {FLOQUET_K:g} /cm, "
+          f"box_tet {n}^3 p={p}: {res['num_dofs']} dofs; forward pair "
+          f"{f.real[0]:.6f}, {f.real[1]:.6f} GHz against f1 {f1:.6f} "
+          f"(error {err:.3e}, gate 1e-4; |Im f| / f1 {im:.1e}), backward "
+          f"at box_tet {FLOQUET_BACK[0]}^3 p={FLOQUET_BACK[1]} {fbk:.6f} "
+          f"against {fb:.6f} GHz ({fbk / fb - 1.0:+.3e}, gate 1e-3); E_mag / E_elec - 1 {ratio:.3e} (gate 1e-6; "
+          f"{bare:.3f} without the Floquet energy); {prov['eigen_path']}, "
+          f"estimator mass solves {route}; GPU vs CPU at box_tet "
+          f"{SMALL_FLOQUET_BOX[0]}^3 p={SMALL_FLOQUET_BOX[1]} {par:.3e} "
+          f"(palace_tpu: 1e-8, tests/port/test_torch_floquet.py); "
+          f"{_durations(res['post_dir'])}, run {wall:.2f} s; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
+def phase_floquet_driven(workdir: str):
+    """The Bloch-phase dipole sweep of the x-periodic cube on the device
+    FGMRES + p-MG (element fine level with the Floquet tables) at full
+    depth, across the f1 resonance: relres and host residuals, the energy
+    balance at resonance; the element fine level's apply; small runs with
+    FloquetReferenceFrequency GPU against CPU and adaptive against
+    uniform."""
+    import numpy as np
+
+    import palace_torch
+    from palace_torch.cases import floquet_box_freq, write_floquet_dipole_case
+    from palace_torch.drivers.driven import _energy
+
+    t_phase = time.perf_counter()
+    n, p = FLOQUET_DIPOLE
+    f1 = floquet_box_freq(FLOQUET_K)
+    cfg = write_floquet_dipole_case(
+        os.path.join(workdir, "flo_drv"), n, p,
+        freqs=(0.9 * f1, f1, 1.1 * f1), tol=1e-8, device="GPU", verbose=0)
+    with _ElemApplies() as applies:
+        res, wall, peak = _gpu_run(cfg, "floquet-driven")
+    check(res["num_dofs"] == FLOQUET_DIPOLE_DOFS,
+          f"floquet-driven: unexpected dof count {res['num_dofs']}")
+    prov = res["provenance"]
+    check(prov.get("fine_level") == "element",
+          f"floquet-driven: fine level {prov.get('fine_level')}")
+    relres, resid = _uniform_checks("floquet-driven", res)
+    route = _device_route("floquet-driven", prov)
+    sop = res["sop"]
+    names = [t.name for t in sop.driven_terms()]
+    check({"floquet_mass", "floquet_cross"} <= set(names),
+          f"floquet-driven: terms {names}")
+    # The reactive power balance Re x^H b = 2 omega^2 (E_mag - E_elec) of
+    # every column (Re x^H A x, A's Hermitian part K - omega^2 M_re, K with
+    # the Floquet terms): it holds only with the Floquet magnetic energy.
+    # E_elec = E_mag at the resonance f1 is not a gate: the point
+    # dipole's near field adds electric energy that grows as the mesh
+    # refines (E_elec / E_mag - 1 at f1 on the CPU: 8.9e-3 at box_tet 4^3,
+    # Order 2; 3.7e-2 at 4^3, Order 3; 0.358 at 8^3, Order 3).
+    rhs1 = sop.rhs1(1)
+    bal = bare = 0.0
+    for (ex, i), E in res["solutions"].items():
+        w, m = res["omegas"][i], res["measurements"][(ex, i)]
+        react = float(np.real(np.vdot(E, 1j * w * rhs1)))
+        e_bare = 0.5 * _energy(sop.K_dom, E) / (w * w)
+        bal = max(bal, abs(2 * w * w * (m.E_mag - m.E_elec) - react)
+                  / (2 * w * w * (m.E_mag + m.E_elec)))
+        bare = max(bare, abs(2 * w * w * (e_bare - m.E_elec) - react)
+                   / (2 * w * w * (e_bare + m.E_elec)))
+    check(bal <= 1e-6, f"floquet-driven: reactive power balance {bal:.3e} "
+                       f"> 1e-6")
+    m = res["measurements"][(1, 1)]
+    ratio = m.E_elec / m.E_mag - 1.0
+    rep = _elem_apply_report(sop, res["omegas"])
+    small = dict(fref=15.0, tol=1e-10, verbose=0)
+    tabs = {}
+    for dev in ("GPU", "CPU"):
+        r = palace_torch.run(write_floquet_dipole_case(
+            os.path.join(workdir, f"flo_drv_{dev}"), *SMALL_FLOQUET_DIPOLE,
+            freqs=(14.0, 15.5, 17.0), device=dev, **small))
+        check(r["provenance"].get("solver_path") == "device",
+              f"floquet-driven ({dev}): {r['provenance'].get('solver_path')}")
+        tabs[dev] = _table(os.path.join(r["post_dir"], "domain-E.csv"))
+    par = _rel_diff(tabs["GPU"], tabs["CPU"])
+    check(par <= 1e-8, f"floquet-driven: domain-E GPU vs CPU {par:.3e}")
+    grid = [round(14.0 + 0.1 * i, 9) for i in range(31)]
+    ad = palace_torch.run(write_floquet_dipole_case(
+        os.path.join(workdir, "flo_drv_adaptive"), *SMALL_FLOQUET_DIPOLE,
+        adaptive_tol=1e-6, device="GPU", **small))
+    check(ad["prom"].stopped_by == {1: "memory"},
+          f"floquet-driven: PROM stopped by {ad['prom'].stopped_by}")
+    un = palace_torch.run(write_floquet_dipole_case(
+        os.path.join(workdir, "flo_drv_uniform"), *SMALL_FLOQUET_DIPOLE,
+        freqs=grid, device="GPU", **small))
+    prom = _rel_diff(_table(os.path.join(ad["post_dir"], "domain-E.csv")),
+                     _table(os.path.join(un["post_dir"], "domain-E.csv")))
+    check(prom <= 1e-4, f"floquet-driven: adaptive vs uniform domain-E "
+                        f"{prom:.3e} > 1e-4")
+    print(f"[25 floquet-driven] x-periodic cube, k {FLOQUET_K:g} /cm, tan "
+          f"delta 0.01, box_tet {n}^3 p={p}: {res['num_dofs']} dofs, 3 "
+          f"columns (0.9, 1, 1.1 f1), FGMRES iterations "
+          f"{res['ksp'].get('total_its')} total, max relres {relres:.3e}, "
+          f"host residual {resid:.3e}; reactive power balance {bal:.3e} "
+          f"(gate 1e-6; {bare:.3e} without the Floquet energy), E_elec / "
+          f"E_mag - 1 at f1 {ratio:+.3e} (0.358 on the CPU); estimator "
+          f"mass solves {route}; element fine level (E={rep['elements']}, "
+          f"{rep['terms']} terms, F={rep['columns']}, "
+          f"{rep['bytes'] / 1e9:.3f} GB) median {rep['ms']:.4f} ms, device "
+          f"{rep['device_ms']:.4f} ms, bound {rep['bound_ms']:.4f} ms "
+          f"({rep['bound_by']}), {applies.count} applies in the run; "
+          f"FloquetReferenceFrequency 15 GHz at box_tet "
+          f"{SMALL_FLOQUET_DIPOLE[0]}^3 p={SMALL_FLOQUET_DIPOLE[1]}: "
+          f"domain-E GPU vs CPU {par:.3e}, adaptive ({ad['prom'].basis_size}"
+          f" basis vectors, {len(ad['prom'].samples)} samples) vs uniform "
+          f"{prom:.3e} (palace_tpu's own PROM: 249x, ROADMAP); "
+          f"{_durations(res['post_dir'])}, run {wall:.2f} s; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
+def phase_floquet_cell(workdir: str):
+    """Floquet ports on the 1 x 1 x 2 cm cell at 12 GHz (host sparse direct
+    with the Woodbury correction): the empty cell at normal and oblique
+    incidence against the plane wave, the dielectric slab against the Airy
+    formula; the small empty cell GPU against CPU."""
+    import numpy as np
+
+    import palace_torch
+    from palace_torch.cases import slab_transmission, write_floquet_cell_case
+
+    t_phase = time.perf_counter()
+    n, p = FLOQUET_CELL
+    f = FLOQUET_CELL_F
+    k0 = 2 * math.pi * f * 1e9 / C0  # 1/m
+    d = 0.02  # m, between the ports
+    kt = 0.9 * 100.0  # 1/m, k_F at the reference frequency
+    runs = {"empty": {}, "oblique": dict(kf=(0.9, 0.0, 0.0), fref=f),
+            "slab": dict(slab=FLOQUET_SLAB)}
+    out, parts = {}, []
+    for tag, kw in runs.items():
+        res, wall, peak = _gpu_run(write_floquet_cell_case(
+            os.path.join(workdir, f"flo_cell_{tag}"), n, p, freqs=(f,),
+            device="GPU", verbose=0, **kw), f"floquet-cell-{tag}")
+        check(res["num_dofs"] == FLOQUET_CELL_DOFS,
+              f"floquet-cell: unexpected dof count {res['num_dofs']}")
+        check(res["provenance"].get("solver_path") == "direct",
+              f"floquet-cell: {res['provenance'].get('solver_path')}")
+        _device_route(f"floquet-cell-{tag}", res["provenance"])
+        _table(os.path.join(res["post_dir"], "domain-E.csv"))
+        S = res["measurements"][(1, 0)].floquet_s
+        # Each port's TE vector is k_t x n over its outward normal n: at
+        # oblique incidence the two ports' are opposite, and S21 carries
+        # their dot product (+1 at normal incidence, where both take the
+        # same fixed vector).
+        te = [next(o.e_te for o in fp.orders if (o.m, o.n) == (0, 0))
+              for fp in (res["sop"].floquet_ports[i] for i in (1, 2))]
+        out[tag] = (S[2][(0, 0, True)] * float(te[0] @ te[1]),
+                    S[1][(0, 0, True)],
+                    sum(abs(v) ** 2 for s in S.values() for v in s.values()))
+        parts.append(f"{tag} {wall:.1f} s, {peak / 2 ** 30:.3f} GiB")
+
+    def arg_err(T, ref):
+        return abs((math.degrees(cmath.phase(T)) - ref + 180.0) % 360.0
+                   - 180.0)
+
+    T, R, tot = out["empty"]
+    ref_a = math.degrees(-k0 * d)
+    ea = arg_err(T, ref_a)
+    check(abs(abs(T) - 1.0) <= 1e-4 and abs(R) < 1e-3
+          and abs(tot - 1.0) <= 1e-4 and ea <= 0.2,
+          f"floquet-cell: empty |T| {abs(T):.6f}, |R| {abs(R):.3e}, sum "
+          f"|S|^2 {tot:.6f}, arg T error {ea:.3f} deg")
+    Tb, Rb, _ = out["oblique"]
+    kz = math.sqrt(k0 * k0 - kt * kt)
+    eb = arg_err(Tb, math.degrees(-kz * d))
+    check(abs(abs(Tb) - 1.0) <= 1e-3 and eb <= 0.5,
+          f"floquet-cell: oblique |T| {abs(Tb):.6f}, arg T error "
+          f"{eb:.3f} deg")
+    Tc, Rc, _ = out["slab"]
+    airy = slab_transmission(f, math.sqrt(FLOQUET_SLAB[2]),
+                             FLOQUET_SLAB[1] - FLOQUET_SLAB[0])
+    ec = abs(abs(Tc) ** 2 - airy)
+    cons = abs(abs(Rc) ** 2 + abs(Tc) ** 2 - 1.0)
+    check(ec <= 2e-3 and cons <= 1e-4,
+          f"floquet-cell: slab |T|^2 {abs(Tc) ** 2:.6f} against Airy "
+          f"{airy:.6f}, |R|^2 + |T|^2 - 1 {cons:.3e}")
+    tabs = {}
+    for dev in ("GPU", "CPU"):
+        r = palace_torch.run(write_floquet_cell_case(
+            os.path.join(workdir, f"flo_cell_{dev}"), *SMALL_FLOQUET_CELL,
+            freqs=(f,), device=dev, verbose=0))
+        tabs[dev] = np.atleast_2d(np.loadtxt(
+            os.path.join(r["post_dir"], "port-floquet-S.csv"),
+            delimiter=",", skiprows=1))
+    par = _nan_rel_diff(tabs["GPU"], tabs["CPU"])
+    check(par <= 1e-8, f"floquet-cell: port-floquet-S GPU vs CPU "
+                       f"{par:.3e}")
+    print(f"[26 floquet-cell] 1 x 1 x 2 cm cell, box_tet {n}x{n}x{2 * n} "
+          f"p={p}: {FLOQUET_CELL_DOFS} dofs, {f:g} GHz, host direct with "
+          f"Woodbury; empty: |T| - 1 {abs(T) - 1.0:+.3e}, |R| {abs(R):.3e}, "
+          f"sum |S|^2 - 1 {tot - 1.0:+.3e}, arg T {math.degrees(cmath.phase(T)):.3f}"
+          f" deg against -k0 d {ref_a % 360.0 - 360.0:.3f} ({ea:.3f} deg); "
+          f"oblique (sin theta {kt / k0:.4f}): |T| - 1 {abs(Tb) - 1.0:+.3e},"
+          f" arg T error {eb:.3f} deg; slab: |T|^2 {abs(Tc) ** 2:.6f} "
+          f"against Airy {airy:.6f} ({abs(Tc) ** 2 - airy:+.3e}), |R|^2 + "
+          f"|T|^2 - 1 {cons:+.3e}; port-floquet-S.csv GPU vs CPU at box_tet "
+          f"{SMALL_FLOQUET_CELL[0]}x{SMALL_FLOQUET_CELL[0]}x"
+          f"{2 * SMALL_FLOQUET_CELL[0]} p={SMALL_FLOQUET_CELL[1]} {par:.3e} "
+          f"(palace_tpu: 1e-8, tests/port/test_torch_floquet.py); runs "
+          f"{'; '.join(parts)}; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return 0
+
+
 def _phases_waveport(workdir: str) -> dict:
-    """Phases 14-17 and 21; returns their kernel launches by path."""
+    """Phases 14-17, 21 and 26; returns their kernel launches by path."""
     wp, S14 = phase_waveport(workdir)
     wpa = phase_waveport_adaptive(workdir, S14)
     bdr = phase_boundaries(workdir)
     phase_waveport_parity(workdir)
     phase_eigen_parity2(workdir)
-    return dict(waveport=wp, waveport_adaptive=wpa, boundaries=bdr)
+    cell = phase_floquet_cell(workdir)
+    return dict(waveport=wp, waveport_adaptive=wpa, boundaries=bdr,
+                floquet_cell=cell)
 
 
 def _phases_static_eigen(workdir: str) -> dict:
-    """Phases 10-13, 18-20 and 23; returns their kernel launches by
+    """Phases 10-13, 18-20, 23 and 25; returns their kernel launches by
     path."""
     mag = phase_magnetostatic(workdir)
     phase_magnetostatic_reference(workdir)
@@ -2366,13 +2723,14 @@ def _phases_static_eigen(workdir: str) -> dict:
     nonlinear = phase_eigen_nonlinear(workdir)
     amr = phase_amr(workdir)
     phase_transient_parity(workdir)
+    drv = phase_floquet_driven(workdir)
     return dict(magnetostatic=mag, electrostatic=es, eigen_damped=damped,
-                eigen_nonlinear=nonlinear, amr=amr)
+                eigen_nonlinear=nonlinear, amr=amr, floquet_driven=drv)
 
 
 #: The phase groups that run in processes of their own, by name.
-GROUPS = {"14-17,21": _phases_waveport,
-          "10-13,18-20,23": _phases_static_eigen}
+GROUPS = {"14-17,21,26": _phases_waveport,
+          "10-13,18-20,23,25": _phases_static_eigen}
 
 
 def _start_group(name: str, directory: str):
@@ -2458,6 +2816,8 @@ def main() -> int:
                 by_path["structured_apply_flat"]["adaptive"] = (
                     phase_adaptive(workdir))
                 phase_adaptive_parity(workdir)
+                _check_groups(groups)
+                floquet_eigen = phase_floquet_eigen(workdir)
                 other_paths = _join_groups(groups)
             finally:
                 for proc, _ in groups.values():
@@ -2465,7 +2825,9 @@ def main() -> int:
                         proc.kill()
                         proc.wait()
             for name in by_path:
-                by_path[name].update(transient=transient, **other_paths)
+                by_path[name].update(transient=transient,
+                                     floquet_eigen=floquet_eigen,
+                                     **other_paths)
     except SmokeFailure as e:
         print(f"FAILED: {e}", flush=True)
         return 1

@@ -531,3 +531,151 @@ def write_dipole_case(directory: str, n: int, order: int, *,
         "Solver": {"Order": order, "Device": device,
                    "Driven": {"Samples": [{"Type": "Point", "Freq": [5.0]}]},
                    "Linear": {"Tol": 1e-10, "MaxIts": 300}}})
+
+
+def floquet_box_freq(k: float, l: int = 0) -> float:
+    """f (GHz) of the lowest Bloch pair of the box of `write_floquet_box_case`
+    (side L = 1 cm, periodic in x, PEC on the y and z faces) at Floquet
+    wave number k (1/cm) on branch l: omega^2 = c0^2 ((pi / L)^2 + beta^2)
+    with beta = k + 2 pi l / L, so f = c0 sqrt(pi^2 + (beta L)^2) /
+    (2 pi L).  The pair is doubly degenerate (E along z times sin(pi y / L),
+    or along y times sin(pi z / L)); l = -1 is the backward branch."""
+    beta_l = k + 2.0 * math.pi * l  # beta L, with L = 1 cm
+    return C0 * math.sqrt(math.pi ** 2 + beta_l ** 2) / (
+        2.0 * math.pi * 1e-2) / 1e9
+
+
+def slab_transmission(f_ghz: float, n: float = 2.0, t: float = 0.5) -> float:
+    """|T|^2 of a lossless dielectric slab of index n and thickness t (cm)
+    in vacuum at normal incidence (the Airy formula): 1 / (1 + ((n^2 - 1) /
+    (2 n))^2 sin^2(n k0 t)), k0 = 2 pi f / c0."""
+    k0 = 2.0 * math.pi * f_ghz * 1e9 / C0
+    s = math.sin(n * k0 * t * 1e-2)
+    return 1.0 / (1.0 + ((n * n - 1.0) / (2.0 * n)) ** 2 * s * s)
+
+
+def _periodic(kf, fref, pairs) -> dict:
+    out = {"FloquetWaveVector": list(kf), "BoundaryPairs": [
+        {"DonorAttributes": [d], "ReceiverAttributes": [r],
+         "Translation": list(t)} for d, r, t in pairs]}
+    if fref:
+        out["FloquetReferenceFrequency"] = fref
+    return out
+
+
+def write_floquet_box_case(directory: str, n: int, order: int, *,
+                           kx: float = 2.0, target: float = 17.0,
+                           modes: int = 2, device: str = "GPU",
+                           verbose: int = 1) -> str:
+    """Write box.msh (box_tet n^3, a 1 cm cube) and case.json of the Floquet
+    eigenproblem of tests/test_floquet.py: periodic in x (Translation
+    [1, 0, 0] cm), PEC on the y and z faces, vacuum, FloquetWaveVector
+    [kx, 0, 0] /cm, the `modes` modes at or above `target` GHz at Tol
+    1e-9; returns the config path.  `floquet_box_freq` has the analytic
+    modes."""
+    _write_tet_box(directory, n, (1.0, 1.0, 1.0))
+    return _write_config(directory, {
+        "Problem": {"Type": "Eigenmode", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "box.msh", "L0": 1.0e-2},
+        "Domains": {"Materials": [{"Attributes": [1], "Permittivity": 1.0}],
+                    "Postprocessing": {"Energy": [{"Index": 1,
+                                                   "Attributes": [1]}]}},
+        "Boundaries": {
+            "Periodic": _periodic([kx, 0.0, 0.0], None,
+                                  [(1, 2, (1.0, 0.0, 0.0))]),
+            "PEC": {"Attributes": [3, 4, 5, 6]}},
+        "Solver": {"Order": order, "Device": device,
+                   "Eigenmode": {"N": modes, "Target": target, "Tol": 1e-9},
+                   "Linear": {"Tol": 1e-9}}})
+
+
+def write_floquet_dipole_case(directory: str, n: int, order: int, *,
+                              freqs=(16.0, 17.5, 19.0), fref: float = 0.0,
+                              adaptive_tol: float = 0.0, fstep: float = 0.1,
+                              hex_mesh: bool = False, linear: str = "GMG",
+                              tol: float = 1e-8, device: str = "GPU",
+                              verbose: int = 1) -> str:
+    """Write box.msh and case.json of the Bloch-phase driven sweep: the box
+    of `write_floquet_box_case` (box_tet n^3, or box_hex n^3 with
+    `hex_mesh`) with tan delta 0.01, driven by a z current dipole at
+    (0.3, 0.45, 0.55) cm at the points `freqs` (GHz), FloquetWaveVector
+    [2, 0, 0] /cm (with FloquetReferenceFrequency `fref` GHz when > 0),
+    and the `linear` solver at `tol`; with `adaptive_tol` > 0, the
+    adaptive sweep over 14-17 GHz in steps of `fstep` instead.  Returns
+    the config path."""
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_hex
+
+    if hex_mesh:
+        os.makedirs(directory, exist_ok=True)
+        gmsh_write.write(box_hex(n, n, n), os.path.join(directory, "box.msh"))
+    else:
+        _write_tet_box(directory, n, (1.0, 1.0, 1.0))
+    driven = ({"MinFreq": 14.0, "MaxFreq": 17.0, "FreqStep": fstep,
+               "AdaptiveTol": adaptive_tol} if adaptive_tol > 0 else
+              {"Samples": [{"Type": "Point", "Freq": list(freqs)}]})
+    return _write_config(directory, {
+        "Problem": {"Type": "Driven", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "box.msh", "L0": 1.0e-2},
+        "Domains": {
+            "Materials": [{"Attributes": [1], "Permittivity": 1.0,
+                           "LossTan": 0.01}],
+            "CurrentDipole": [{"Index": 1, "Moment": 1.0,
+                               "Center": [0.3, 0.45, 0.55],
+                               "Direction": [0.0, 0.0, 1.0]}],
+            "Postprocessing": {"Energy": [{"Index": 1, "Attributes": [1]}]}},
+        "Boundaries": {
+            "Periodic": _periodic([2.0, 0.0, 0.0], fref,
+                                  [(1, 2, (1.0, 0.0, 0.0))]),
+            "PEC": {"Attributes": [3, 4, 5, 6]}},
+        "Solver": {"Order": order, "Device": device, "Driven": driven,
+                   "Linear": {"Type": linear, "Tol": tol, "MaxIts": 400}}})
+
+
+def write_floquet_cell_case(directory: str, n: int, order: int, *,
+                            freqs=(12.0,), kf=(0.0, 0.0, 0.0),
+                            fref: float = 0.0, slab=None,
+                            device: str = "GPU", verbose: int = 1) -> str:
+    """Write cell.msh (box_tet n x n x 2n over a 1 x 1 x 2 cm cell) and
+    case.json of the Floquet-port cell of tests/test_floquet_port.py:
+    periodic in x and y, Floquet port 1 on z = 2 cm (attribute 6, excited,
+    TE, MaxOrder 1) and port 2 on z = 0 (attribute 5), FloquetWaveVector
+    `kf` /cm (frequency-scaled with FloquetReferenceFrequency `fref` GHz
+    when > 0), at the points `freqs` (GHz).  `slab` = (z0, z1, eps_r) fills
+    z0 <= z <= z1 cm with a dielectric (attribute 2; put z0 and z1 on mesh
+    planes).  Returns the config path."""
+    import numpy as np
+
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_tet
+
+    os.makedirs(directory, exist_ok=True)
+    mesh = box_tet(n, n, 2 * n, lx=1.0, ly=1.0, lz=2.0)
+    materials = [{"Attributes": [1], "Permittivity": 1.0,
+                  "Permeability": 1.0}]
+    if slab is not None:
+        z0, z1, eps = slab
+        b = mesh.buckets[0]
+        zc = mesh.nodes[b.conn].mean(axis=1)[:, 2]
+        b.attr = np.where((zc > z0) & (zc < z1), 2, b.attr).astype(np.int32)
+        materials.append({"Attributes": [2], "Permittivity": eps,
+                          "Permeability": 1.0})
+    gmsh_write.write(mesh, os.path.join(directory, "cell.msh"))
+    return _write_config(directory, {
+        "Problem": {"Type": "Driven", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "cell.msh", "L0": 1.0e-2},
+        "Domains": {"Materials": materials},
+        "Boundaries": {
+            "Periodic": _periodic(kf, fref, [(1, 2, (1.0, 0.0, 0.0)),
+                                             (3, 4, (0.0, 1.0, 0.0))]),
+            "FloquetPort": [
+                {"Index": 1, "Attributes": [6], "Excitation": True,
+                 "IncidentPolarization": "TE", "MaxOrder": 1},
+                {"Index": 2, "Attributes": [5], "MaxOrder": 1}]},
+        "Solver": {"Order": order, "Device": device,
+                   "Driven": {"Samples": [{"Type": "Point",
+                                           "Freq": list(freqs)}]},
+                   "Linear": {"Tol": 1e-10, "MaxIts": 400}}})

@@ -8,9 +8,13 @@ every frequency; then measure port V/I/S/power, domain energies, probes,
 surface fluxes, interface-dielectric participation and the Stratton-Chu
 far field (host integrals, `post/{surfaces,farfield}.py`), compute error
 indicators, and write the reference CSV table set and the ParaView fields
-at `SaveFreqs` (`post/paraview.py`); ports are lumped or wave ports, and
-the system carries the frequency-dependent boundary terms A2(omega) on
-every path.
+at `SaveFreqs` (`post/paraview.py`); ports are lumped, wave or Floquet
+ports, and the system carries the frequency-dependent boundary terms
+A2(omega) on every path.  A FloquetWaveVector adds the Bloch terms to the
+system (device terms `floquet_mass` and `floquet_cross`), to the magnetic
+energy and to the indicators.  Floquet ports send the sweep to host sparse
+direct, as in palace_tpu, with their low-rank diffraction-order term
+solved by Woodbury, and write port-floquet-S.csv.
 
 Deliberate divergence from the JAX package: an exception raised on the
 device path propagates; there is no silent re-solve with sparse direct.
@@ -104,6 +108,7 @@ class StepMeasurement:
     probe_E: Optional[np.ndarray] = None  # (nprobe, 3) complex
     probe_B: Optional[np.ndarray] = None
     surf_flux: Dict[int, complex] = field(default_factory=dict)
+    floquet_s: Optional[Dict] = None  # {port: {(m, n, is_te): S}}
     surf_q: Dict[int, Tuple[float, float]] = field(default_factory=dict)  # (p, Q)
     farfield: Optional[np.ndarray] = None  # (npts, 3) complex rE
 
@@ -125,13 +130,16 @@ def measure_step(sop: SpaceOperator, E: np.ndarray, omega: float,
                  ) -> StepMeasurement:
     """Measure ports, energies, probes for one solution vector."""
     m = StepMeasurement(omega=omega)
-    # E_elec = 1/2 Re E^H M E, E_mag = 1/(2 w^2) Re E^H K E (domain parts).
+    # E_elec = 1/2 Re E^H M E, E_mag = 1/(2 w^2) Re E^H K E (domain parts,
+    # K with the Floquet terms).
     m.E_elec = 0.5 * _energy(sop.M_re, E)
-    m.E_mag = 0.5 * _energy(sop.K_dom, E) / (omega * omega)
+    m.E_mag = 0.5 * (_energy(sop.K_dom, E)
+                     + sop.floquet_mag_quad(E, omega)) / (omega * omega)
     for ecfg in sop.iodata.domains.energies:
         m.domain_E[ecfg.index] = 0.5 * _energy(sop.M_re, E, ecfg.attributes)
-        m.domain_M[ecfg.index] = 0.5 * _energy(sop.K_dom, E,
-                                               ecfg.attributes) / omega ** 2
+        m.domain_M[ecfg.index] = 0.5 * (
+            _energy(sop.K_dom, E, ecfg.attributes)
+            + sop.floquet_mag_quad(E, omega, ecfg.attributes)) / omega ** 2
 
     for idx, port in sop.ports.items():
         pm = PortMeasurement()
@@ -312,6 +320,8 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
         measurements: Dict[Tuple[int, int], StepMeasurement] = {}
         for (ex, i), E in sols.items():
             m = measure_step(sop, E, omegas[i], ex, port_fn, probe_locs)
+            if sop.floquet_ports:
+                m.floquet_s = sop.floquet_sparams(E, omegas[i], ex)
             measure_surfaces(iodata, sop, m, E, omegas[i], surf_traces)
             if ff_tb is not None:
                 from palace_torch.post.farfield import stratton_chu
@@ -331,7 +341,11 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
         # Combined grad + curl flux indicators with B = -curl E/(i w).
         eta2_steps, energies = [], []
         for (ex, i), E in sols.items():
+            fk = sop.floquet_k
+            if fk is not None and sop.floquet_omega_ref > 0:
+                fk = fk * omegas[i]
             e2 = curl_flux_indicators(sop.space, sop.materials, E,
+                                      floquet_k=fk,
                                       device=device) / omegas[i] ** 2
             try:
                 e2 = e2 + grad_flux_indicators(sop.space, sop.materials, E,
@@ -406,11 +420,13 @@ def use_device_ksp(iodata, num_dofs: int) -> bool:
 def sweep_uniform(iodata, sop: SpaceOperator, omegas, excitations, skip=0
                   ) -> Dict[Tuple[int, int], np.ndarray]:
     """Device FGMRES sweep when the configuration selects it, else sparse
-    direct.  Exceptions on the device path propagate (no direct fallback);
-    columns left above 10x the tolerance are re-solved sparse-direct and
-    recorded in provenance."""
+    direct (always with Floquet ports, as in palace_tpu: their low-rank
+    DtN term is solved by Woodbury on the host factorization).  Exceptions
+    on the device path propagate (no direct fallback); columns left above
+    10x the tolerance are re-solved sparse-direct and recorded in
+    provenance."""
     sweep_uniform_device._last_info = None
-    if not use_device_ksp(iodata, sop.space.num_dofs):
+    if sop.floquet_ports or not use_device_ksp(iodata, sop.space.num_dofs):
         provenance.record("solver_path", "direct")
         return sweep_uniform_direct(iodata, sop, omegas, excitations,
                                     skip=skip)
@@ -481,15 +497,19 @@ sweep_uniform_device._last_info = None
 
 def _rhs(sop: SpaceOperator, ex: int, omega: float,
          rhs1: Optional[np.ndarray] = None) -> np.ndarray:
-    """b(omega) = i omega rhs1 (+ the wave-port RHS2 of excitation ex)."""
+    """b(omega) = i omega rhs1 (+ the wave-port and Floquet-port RHS2 of
+    excitation ex)."""
     b = 1j * omega * (sop.rhs1(ex) if rhs1 is None else rhs1)
     if sop.wave_ports:
         b = b + sop.waveport_rhs2(ex, omega)
+    if sop.floquet_ports:
+        b = b + sop.floquet_rhs2(ex, omega)
     return b
 
 
 def _system(sop: SpaceOperator, omega: float, KCM):
-    """A(omega) = K + i omega C - omega^2 M + A2(omega), PEC eliminated."""
+    """A(omega) = K + i omega C - omega^2 M + A2(omega), PEC eliminated
+    (the Floquet ports' low-rank term excepted: see `_woodbury`)."""
     A = sop.system_csr(omega, *KCM)
     A2 = sop.a2_csr(omega)
     return A if A2 is None else (A + A2).tocsr()
@@ -515,6 +535,27 @@ def _direct_resolve_columns(iodata, sop: SpaceOperator, omegas, cols
     return out
 
 
+def _woodbury(sop: SpaceOperator, omega: float, lu):
+    """x = (A + U g U^H)^-1 b from the factorization `lu` of A, with
+    U diag(g) U^H the Floquet ports' low-rank DtN correction
+    (`floquet_lowrank`): x = A^-1 b - A^-1 U (g^-1 + U^H A^-1 U)^-1 U^H
+    A^-1 b, one solve a rank-1 term (densifying the port block into the
+    sparse matrix costs the square of the port dofs).  Without Floquet
+    ports, lu.solve.  Only `sweep_uniform_direct` needs it: `sweep_uniform`
+    sends every sweep with Floquet ports there."""
+    U, g = sop.floquet_lowrank(omega) if sop.floquet_ports else (None, None)
+    if U is None:
+        return lu.solve
+    AinvU = np.stack([lu.solve(U[:, k]) for k in range(U.shape[1])], axis=1)
+    cap = np.linalg.inv(np.diag(1.0 / g) + U.conj().T @ AinvU)
+
+    def solve(b):
+        x = lu.solve(b)
+        return x - AinvU @ (cap @ (U.conj().T @ x))
+
+    return solve
+
+
 def sweep_uniform_direct(iodata, sop: SpaceOperator, omegas, excitations,
                          skip=0) -> Dict[Tuple[int, int], np.ndarray]:
     """Frequency loop with one nested-dissection-ordered sparse-direct
@@ -532,9 +573,9 @@ def sweep_uniform_direct(iodata, sop: SpaceOperator, omegas, excitations,
         if not todo:
             continue
         A = _system(sop, omega, KCM)
-        lu = splu_nd(A, coords)
+        solve = _woodbury(sop, omega, splu_nd(A, coords))
         for ex in todo:
-            sols[(ex, i)] = lu.solve(_rhs(sop, ex, omega, rhs1[ex]))
+            sols[(ex, i)] = solve(_rhs(sop, ex, omega, rhs1[ex]))
         print_log(iodata, f"  freq {i + 1}/{len(omegas)} solved "
                           f"({A.shape[0]} dofs x {len(todo)} excitations)")
     return sols
@@ -648,10 +689,54 @@ def dielectric_pq(iodata: IoData, sop: SpaceOperator, d, trace,
 # CSV output (reference: palace/models/postoperatorcsv.cpp)
 
 
+def write_floquet_table(sop: SpaceOperator, post_dir: str, freqs_ghz,
+                        excitations, meas):
+    """port-floquet-S.csv: |S| (dB) and arg S (deg.) of every requested
+    diffraction order of every Floquet port, TE and TM (RHC and LHC when
+    the excitation is circularly polarized); an evanescent order prints
+    NaN (reference: postoperatorcsv.cpp:1234-1276, PrintFloquetPortS)."""
+    def pols(ex):
+        circ = any(fp.excitation == ex and abs(fp.alpha_te) > 1e-14
+                   and abs(fp.alpha_tm) > 1e-14
+                   for fp in sop.floquet_ports.values())
+        return ((True, "RHC" if circ else "TE"),
+                (False, "LHC" if circ else "TM"))
+
+    def columns(ex):
+        for idx, fp in sorted(sop.floquet_ports.items()):
+            for o in fp.orders:
+                if o.out:
+                    for te, pol in pols(ex):
+                        yield idx, o, te, pol, f"fs{idx}_{o.m}_{o.n}_{pol}_{ex}"
+
+    t = Table()
+    fc = t.add(Column("f", "f (GHz)", min_left_padding=0, precision=8,
+                      sign=""))
+    for ex in excitations:
+        for idx, o, te, pol, key in columns(ex):
+            t.add(Column(f"abs_{key}",
+                         f"|S[P{idx}({o.m};{o.n}){pol}][{ex}]| (dB)"))
+            t.add(Column(f"arg_{key}",
+                         f"arg(S[P{idx}({o.m};{o.n}){pol}][{ex}]) (deg.)"))
+    for i, f in enumerate(freqs_ghz):
+        fc.data.append(f)
+        for ex in excitations:
+            fs = meas[(ex, i)].floquet_s or {}
+            for idx, o, te, pol, key in columns(ex):
+                S = fs.get(idx, {}).get((o.m, o.n, te))
+                t.col(f"abs_{key}").data.append(
+                    float("nan") if S is None
+                    else 20.0 * math.log10(max(abs(S), 1e-300)))
+                t.col(f"arg_{key}").data.append(
+                    float("nan") if S is None
+                    else math.degrees(math.atan2(S.imag, S.real)))
+    t.write(os.path.join(post_dir, "port-floquet-S.csv"))
+
+
 def write_driven_tables(iodata: IoData, sop: SpaceOperator, post_dir: str,
                         freqs_ghz, excitations, meas):
-    """port-S, port-V, port-I, port-Z, domain-E, surface-F, surface-Q and
-    probe-E/B tables."""
+    """port-S, port-floquet-S, port-V, port-I, port-Z, domain-E, surface-F,
+    surface-Q and probe-E/B tables."""
     units = iodata.units
     multi = len(excitations) > 1
 
@@ -684,6 +769,8 @@ def write_driven_tables(iodata: IoData, sop: SpaceOperator, post_dir: str,
                 t.col(f"sarg{idx}{ex}").data.append(
                     math.degrees(math.atan2(S.imag, S.real)))
     t.write(os.path.join(post_dir, "port-S.csv"))
+    if sop.floquet_ports:
+        write_floquet_table(sop, post_dir, freqs_ghz, excitations, meas)
 
     # port-V / port-I (lumped ports; wave ports with a VoltagePath get
     # V_wp columns in port-V).

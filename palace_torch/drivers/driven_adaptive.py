@@ -32,6 +32,17 @@ direct, as in palace_tpu.  That is a route, not a fallback: the provenance
 records it as `prom_hdm_path = "direct-slow-a2"` ("device" or "direct"
 otherwise).
 
+The Floquet volume terms enter K when they do not scale with omega; with
+FloquetReferenceFrequency they are omega^2 Fm + i omega Fc, and the
+reduced tables carry V^H Fm V and V^H Fc V for the online solve.  That is
+a deliberate divergence: palace_tpu's PROM leaves them out of the reduced
+system (its HDM solves have them), and its adaptive sweep then disagrees
+with its uniform one (249x relative to the maximum E_elec on a periodic
+box_tet(3,3,3), Order 2, 14-17 GHz).  Floquet ports are refused
+(`unported`, ROADMAP "adaptive sweeps with Floquet ports"): palace_tpu's
+PROM never adds their RHS2 or low-rank term and fails on the empty
+excitation.
+
 Deliberate divergence from the JAX package: an exception raised while
 building or running the device solver propagates; there is no quiet
 sparse-direct HDM path behind it.  A device solve left above
@@ -51,7 +62,7 @@ import numpy as np
 from palace_torch.drivers.common import print_log
 from palace_torch.models.spaceoperator import SpaceOperator
 from palace_torch.ops.partial import signed_tables
-from palace_torch.utils import provenance
+from palace_torch.utils import provenance, unported
 
 
 def _orthonormalize(V: List[np.ndarray], w: np.ndarray,
@@ -175,27 +186,33 @@ def _print_prom_matrices(iodata, sop, post_dir, V, labels, orth_R,
     write(R.real, "rom-orthogonalization-matrix-R.csv")
 
 
-def _reduced_tables(V, K, C, M, rhs1, Mwp):
+def _reduced_tables(V, K, C, M, rhs1, Mwp, flo=None):
     """(Vm, V^H K V, V^H C V or None, V^H M V, {port: V^H Mwp V},
-    {ex: V^H b1}) of the basis (host scipy products over the whole basis,
-    as the reference recomputes them at every greedy iteration)."""
+    {ex: V^H b1}, (V^H Fm V, V^H Fc V) or None) of the basis (host scipy
+    products over the whole basis, as the reference recomputes them at
+    every greedy iteration); `flo` is the frequency-scaled Floquet pair
+    (Fm, Fc) or None."""
     Vm = np.stack(V, axis=1)  # (n, m)
     Kr = Vm.conj().T @ (K @ Vm)
     Cr = Vm.conj().T @ (C @ Vm) if C is not None else None
     Mr = Vm.conj().T @ (M @ Vm)
     Wr = {idx: Vm.conj().T @ (Mp @ Vm) for idx, Mp in Mwp.items()}
     b1r = {ex: Vm.conj().T @ b for ex, b in rhs1.items()}
-    return Vm, Kr, Cr, Mr, Wr, b1r
+    Fr = (None if flo is None
+          else tuple(Vm.conj().T @ (X @ Vm) for X in flo))
+    return Vm, Kr, Cr, Mr, Wr, b1r, Fr
 
 
 def _prom_solve(om, ex, tabs, kn, a2_extra, rhs2):
     """Reduced coefficients z of (V^H A(om) V) z = V^H b(om); `kn(port, om)`
     is Re kn of a wave port, `a2_extra(om)` the non-factorable A2 CSR (or
     None), `rhs2(ex, om)` the wave-port RHS2 (or None)."""
-    Vm, Kr, Cr, Mr, Wr, b1r = tabs
+    Vm, Kr, Cr, Mr, Wr, b1r, Fr = tabs
     Ar = Kr - om * om * Mr
     if Cr is not None:
         Ar = Ar + 1j * om * Cr
+    if Fr is not None:
+        Ar = Ar + om * om * Fr[0] + 1j * om * Fr[1]
     for idx, W in Wr.items():
         Ar = Ar + 1j * kn(idx, om) * W
     X = a2_extra(om)
@@ -234,6 +251,9 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
     from palace_torch.drivers.driven import _rhs, _system, use_device_ksp
     from palace_torch.linalg.ordering import dof_coordinates, splu_nd
 
+    if sop.floquet_ports:
+        unported("Adaptive sweeps with Floquet ports",
+                 "adaptive sweeps with Floquet ports")
     cfg = iodata.solver.driven
     tol = cfg.adaptive_tol
     max_size = max(cfg.adaptive_max_size, 4)
@@ -242,6 +262,8 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
     K = sop.stiffness_csr()
     C = sop.damping_csr()
     M = sop.mass_csr()
+    flo = (sop.floquet_csrs() if sop.K_flo_mass is not None
+           and sop.floquet_omega_ref > 0.0 else None)
     coords = dof_coordinates(sop.space)
     rhs1 = {ex: sop.rhs1(ex).astype(complex) for ex in excitations}
     free_mask = ~sop.ess_mask
@@ -372,7 +394,7 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
             om_star = mri.find_max_error()
             E = report.hdm[(ex, om_star)] = solve_hdm(om_star, ex)
             total_hdm += 1
-            tabs = _reduced_tables(V, K, C, M, rhs1, Mwp)
+            tabs = _reduced_tables(V, K, C, M, rhs1, Mwp, flo)
             z = prom_solve(om_star, ex, tabs)
             err = (np.linalg.norm(tabs[0] @ z - E)
                    / max(np.linalg.norm(E), 1e-300))
@@ -396,7 +418,7 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
                              n_port_modes, K, C, M)
 
     # Online sweep.
-    tabs = _reduced_tables(V, K, C, M, rhs1, Mwp)
+    tabs = _reduced_tables(V, K, C, M, rhs1, Mwp, flo)
     Vm = tabs[0]
     report.basis_size = len(V)
     sols = {}

@@ -19,8 +19,12 @@ second-order absorbing boundaries make the problem nonlinear in omega:
 A2(omega) is interpolated by a quadratic Newton polynomial on
 [i omega_t, i omega_u] into the pencil, and each pair found is refined by
 fixed point against the true A2.  With Model/Refinement/MaxIts > 0 the
-solve runs inside the AMR loop on tets (`drivers/amr.py`).  Floquet terms
-and hex-mesh AMR raise NotImplementedError naming their ROADMAP item.
+solve runs inside the AMR loop on tets (`drivers/amr.py`); hex-mesh AMR
+raises NotImplementedError naming its ROADMAP item.  A FloquetWaveVector
+adds the Bloch terms Fm + i Fc to K (complex Hermitian): those pencils run
+host shift-invert ARPACK with `which="LR"`, keep only modes at or above the
+target (which drops the spurious gradient band), and add the Floquet part
+of the magnetic energy and the Floquet correction of the indicators.
 
 Deliberate divergence from the JAX package: only the non-convergence the
 ARPACK fallback exists for is caught (`quadratic_eigs_jd` returning None,
@@ -60,21 +64,18 @@ from palace_torch.linalg.eig import (quadratic_eigs, quadratic_eigs_jd,
                                      shift_invert_eigs)
 from palace_torch.models.spaceoperator import SpaceOperator
 from palace_torch.post.tables import Column, Table, index_column
-from palace_torch.utils import provenance, timers, unported
+from palace_torch.utils import provenance, timers
 
 
 def _check_unported(iodata: IoData):
-    """Refuse, before any work, the eigenmode features the port lacks."""
+    """Refuse, before any work, what palace_tpu's eigenmode driver
+    refuses."""
     b = iodata.boundaries
     if b.conductivities:
         # As in palace_tpu (and the reference for non-PEP solvers).
         raise NotImplementedError(
             "conductivity boundaries make the eigenproblem nonlinear in "
             "omega (reference rejects this for non-PEP solvers too)")
-    if b.floquet_ports or (b.floquet_wave_vector is not None and
-                           np.linalg.norm(b.floquet_wave_vector) > 0):
-        unported("Floquet terms of the eigenproblem",
-                 "Floquet ports and Floquet eigenmode")
 
 
 def _funcA2(sop: SpaceOperator, omega: float):
@@ -118,10 +119,13 @@ def divfree_data(iodata: IoData, sop: SpaceOperator):
     """(G, M_re) of the damped pencil's div-free projection, with the H1
     space held Dirichlet on `aux_bdr_attrs` (reference:
     eigensolver.cpp:204-218, spaceoperator.cpp:193-204), and a note of why
-    it is or is not built; off with London depths, as in palace_tpu."""
+    it is or is not built; off with Floquet terms or London depths, as in
+    palace_tpu (eigensolver.cpp:204-218)."""
     from palace_torch.fem.h1 import H1Space
     from palace_torch.fem.nd_operators import nd_h1_gradient
 
+    if sop.K_flo_mass is not None:
+        return None, "off: Floquet terms"
     if any(abs(l) > 0 for l in sop.materials.london_depth.values()):
         return None, "off: London penetration depths"
     try:
@@ -293,7 +297,11 @@ def solve(iodata: IoData, output_dir: str | None = None,
         # lambda = 0 is filtered below); grow the subspace and retry if the
         # filter leaves fewer than the n requested physical modes.
         extra = 8
-        lossless_linear = probeA2 is None and sop.M_im is None
+        # Floquet terms make K complex Hermitian: they stay on the host
+        # shift-invert branch, as in palace_tpu.
+        floquet = sop.K_flo_mass is not None
+        lossless_linear = (probeA2 is None and sop.M_im is None
+                           and not floquet)
         for attempt in range(3):
             k_req = 2 * nev + extra
             with timers.block("Eigenvalue solve"):
@@ -338,11 +346,17 @@ def solve(iodata: IoData, output_dir: str | None = None,
                 else:
                     result = shift_invert_eigs(
                         Kcsr, Mcsr, ess, omega_t ** 2, k_req, tol=cfg.tol,
-                        which="LM")
+                        which="LR" if floquet else "LM")
                     provenance.record("eigen_path", "host-arpack")
                 if not damped:
                     omega = np.sqrt(result.eigenvalues.astype(complex))
             keep = (np.real(omega) > max(1e-8, 1e-3 * abs(omega_t)))
+            if floquet:
+                # The reference's shift-invert keeps the interval [sigma,
+                # inf) (slepc.cpp:432-445): modes below the target go,
+                # and with them the Floquet spurious gradient band
+                # (lambda <= 2 k^T mu^-1 k / eps).
+                keep &= (np.real(omega) >= omega_t * (1.0 - 1e-9))
             if probeA2 is not None:
                 # The interpolated pencil sprays spurious anti-damped
                 # modes; keep the physical branch above the target
@@ -402,8 +416,9 @@ def solve(iodata: IoData, output_dir: str | None = None,
                 # Combined grad + curl flux indicators with B = -i/omega
                 # curl E (reference: eigensolver.cpp:339-343), Et the mode's
                 # total energy.
-                e2 = curl_flux_indicators(space, sop.materials, x,
-                                          device=device) / abs(omega[i]) ** 2
+                e2 = curl_flux_indicators(
+                    space, sop.materials, x, floquet_k=sop.floquet_k,
+                    device=device) / abs(omega[i]) ** 2
                 try:
                     e2 = e2 + grad_flux_indicators(space, sop.materials, x,
                                                    device=device)
@@ -411,7 +426,8 @@ def solve(iodata: IoData, output_dir: str | None = None,
                     pass  # RT on hex/prism meshes: curl-only indicators
                 eta2.append(e2)
                 E_elec = 0.5 * _quad(sop.M_re, x)
-                E_mag = 0.5 * _quad(sop.K_dom, x) / abs(omega[i]) ** 2
+                E_mag = 0.5 * (_quad(sop.K_dom, x) + sop.floquet_mag_quad(
+                    x, abs(omega[i]))) / abs(omega[i]) ** 2
                 E_cap = E_ind = 0.0
                 for idx, port in sop.ports.items():
                     s, v = sop.port_functionals(idx)
@@ -511,7 +527,8 @@ def _write_domain_energy(iodata, sop, post_dir, omega, modes):
     for i in range(len(omega)):
         x = modes[i]
         Ee = 0.5 * _quad(sop.M_re, x)
-        Em = 0.5 * _quad(sop.K_dom, x) / abs(omega[i]) ** 2
+        Em = 0.5 * (_quad(sop.K_dom, x) + sop.floquet_mag_quad(
+            x, abs(omega[i]))) / abs(omega[i]) ** 2
         Ec = Ei = 0.0
         for idx, port in sop.ports.items():
             s, v = sop.port_functionals(idx)
@@ -528,8 +545,10 @@ def _write_domain_energy(iodata, sop, post_dir, omega, modes):
         td.col("Ei").data.append(Ei * Escale)
         for ecfg in iodata.domains.energies:
             EeA = 0.5 * _masked_quad(sop.M_re, x, ecfg.attributes)
-            EmA = 0.5 * _masked_quad(sop.K_dom, x,
-                                     ecfg.attributes) / abs(omega[i]) ** 2
+            EmA = 0.5 * (_masked_quad(sop.K_dom, x, ecfg.attributes)
+                         + sop.floquet_mag_quad(x, abs(omega[i]),
+                                                ecfg.attributes)
+                         ) / abs(omega[i]) ** 2
             td.col(f"Ee{ecfg.index}").data.append(EeA * Escale)
             td.col(f"pe{ecfg.index}").data.append(EeA / Ee if Ee > 0 else 0.0)
             td.col(f"Em{ecfg.index}").data.append(EmA * Escale)

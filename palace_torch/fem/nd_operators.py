@@ -1,5 +1,6 @@
-"""H(curl) bilinear forms: mass (eps u, v) and curl-curl (nu curl u, curl v)
-(counterpart of palace_tpu/fem/nd_operators.py, element mode).
+"""H(curl) bilinear forms: mass (eps u, v), curl-curl (nu curl u, curl v)
+and the antisymmetric Floquet cross term (counterpart of
+palace_tpu/fem/nd_operators.py, element mode).
 
 Covariant (value) transform: u = J^{-T} u_ref, so the mass qdata is
 Jinv C Jinv^T; contravariant (curl) transform: curl u = (1/detJ) J curl_ref
@@ -38,19 +39,26 @@ def _planar_sandwich(Ap, C, right_p, wscale):
     return Wp
 
 
-def _assemble(G: np.ndarray, Wp: np.ndarray) -> np.ndarray:
-    """A[e] = sum_q G_q^T W_q G_q from planar qdata Wp (d, d, E, nq) and
-    shared tables G (nq, nd, d): one dgemm against the static S tensor."""
-    nq, nd, d = G.shape
+def _assemble_mixed(L: np.ndarray, R: np.ndarray, Wp: np.ndarray
+                    ) -> np.ndarray:
+    """A[e]_ij = sum_q L_q[i]^T W_q R_q[j] with distinct left and right
+    tables (both (nq, nd, d)); Wp planar (d, d, E, nq)."""
+    nq, nd, d = L.shape
     E = Wp.shape[2]
     S = (
-        G.transpose(2, 0, 1)[:, None, :, :, None]
-        * G.transpose(2, 0, 1)[None, :, :, None, :]
+        L.transpose(2, 0, 1)[:, None, :, :, None]
+        * R.transpose(2, 0, 1)[None, :, :, None, :]
     ).reshape(d * d * nq, nd * nd)
     W = np.ascontiguousarray(
         np.moveaxis(Wp.reshape(d * d, E, nq), 1, 0)
     ).reshape(E, d * d * nq)
     return (W @ S).reshape(E, nd, nd)
+
+
+def _assemble(G: np.ndarray, Wp: np.ndarray) -> np.ndarray:
+    """A[e] = sum_q G_q^T W_q G_q from planar qdata Wp (d, d, E, nq) and
+    shared tables G (nq, nd, d): one dgemm against the static S tensor."""
+    return _assemble_mixed(G, G, Wp)
 
 
 def nd_operator(
@@ -99,6 +107,42 @@ def nd_operator(
             Ac = _assemble(C, Wc)
             A = Ac if A is None else A + Ac
         buckets.append(BucketTables(gidx=ed, A=A, signs=sg))
+    op = PAOperator(space.num_dofs, buckets, device=device)
+    op.space = space
+    return op
+
+
+def nd_cross_operator(space: NDSpace, coef: Dict[int, np.ndarray],
+                      device: torch.device = torch.device("cpu")
+                      ) -> PAOperator:
+    """Antisymmetric Floquet cross term -(B - B^T), B_ij = (Q u_j, curl v_i)
+    with Q = mu^-1 [k x] (reference: palace/models/spaceoperator.cpp:302-306,
+    materialoperator.cpp:351).
+
+    Consumed as K + i * (this): the Hermitian Bloch operator
+    K_cc + (kx)^T mu^-1 kx - i (B - B^T), whose spectrum on a periodic PEC
+    box is the exact omega^2 = pi^2 (m^2 + n^2) + (k + 2 pi l)^2 for both
+    propagation directions; the symmetric combination B + B^T loses the
+    backward branch.  Pullbacks: value u = J^-T u_ref, curl u = (1/detJ)
+    J curl_ref u_ref, so B has qdata w sign(detJ) J^T Q J^-T."""
+    mesh = space.mesh
+    sdim = mesh.nodes.shape[1]
+    if sdim != 3:
+        raise NotImplementedError(
+            "Floquet cross term is 3D-only (reference: "
+            "materialoperator.cpp:390-392)")
+    signs_list = getattr(space, "elem_signs", [None] * len(mesh.buckets))
+    buckets: List[BucketTables] = []
+    for b, ed, sg in zip(mesh.buckets, space.elem_dofs, signs_list):
+        q = default_qorder(space.order, b.geo_order, b.geom)
+        gf = geometry.compute(mesh.nodes, b, q)
+        V, C = space.basis_tables(b.geom, gf.qpts)
+        Q = _per_elem_tensor(coef, b.attr, sdim)
+        JT = gf.Jp.transpose(1, 0, 2, 3)  # (r, s, E, nq): J^T planar
+        wsgn = gf.w[None, :] * np.sign(gf.detJ)
+        B = _assemble_mixed(C, V, _planar_sandwich(JT, Q, gf.Jinvp, wsgn))
+        buckets.append(BucketTables(gidx=ed, A=B.transpose(0, 2, 1) - B,
+                                    signs=sg))
     op = PAOperator(space.num_dofs, buckets, device=device)
     op.space = space
     return op

@@ -10,8 +10,13 @@ terms with complex coefficients (device solver).  A2(omega) holds the
 frequency-dependent boundary terms: wave ports (i Re kn(omega) times a
 mu^-1 boundary mass), finite-conductivity surfaces (i omega / Z_s(omega)
 times a boundary mass) and the second-order absorbing surface-curl term
-(i / (2 omega) times its curl bucket).  Domain operators are `PAOperator`s
-on the run's device.
+(i / (2 omega) times its curl bucket) and the Floquet ports' Robin term
+(i gamma_00(omega) times a mu^-1 boundary mass; their low-rank
+diffraction-order correction is `floquet_lowrank`, solved by Woodbury).
+A FloquetWaveVector adds the Bloch volume terms Fm = ((kx)^T mu^-1 kx u,
+v) and the antisymmetric Fc, as Fm + i Fc in K or, with
+FloquetReferenceFrequency, as omega^2 Fm + i omega Fc.  Domain operators
+are `PAOperator`s on the run's device.
 """
 
 from __future__ import annotations
@@ -71,10 +76,6 @@ class SpaceOperator:
     def __init__(self, iodata: IoData, mesh: Mesh,
                  device: torch.device = torch.device("cpu")):
         b = iodata.boundaries
-        if b.floquet_ports or (b.floquet_wave_vector is not None and
-                               np.linalg.norm(b.floquet_wave_vector) > 0):
-            unported("Floquet ports / FloquetWaveVector",
-                     "Floquet ports and Floquet eigenmode")
         if mesh.nodes.shape[1] != 3:
             unported("2D meshes", "2D meshes")
         canonicalize_simplices(mesh)
@@ -130,6 +131,24 @@ class SpaceOperator:
                     mesh, attrs, self.bdr_qorder)))
             self._surface_currents.append((sc, elems, tbs))
 
+        # Floquet diffraction-order ports (reference:
+        # palace/models/floquetportoperator.cpp).
+        self.floquet_ports: Dict[int, object] = {}
+        if b.floquet_ports:
+            from palace_torch.config import ProblemType
+            from palace_torch.models.floquetport import FloquetPortData
+
+            if iodata.problem.type is not ProblemType.DRIVEN:
+                raise ValueError(
+                    "Floquet ports are only available for driven solves "
+                    "(reference: floquetportoperator.cpp:931-933)")
+            k = self.floquet_k if self.floquet_k is not None else np.zeros(3)
+            for cfg in b.floquet_ports:
+                fp = FloquetPortData(iodata, mesh, self.space, cfg,
+                                     self.materials, k,
+                                     self.floquet_omega_ref, self.bdr_qorder)
+                self.floquet_ports[fp.index] = fp
+
         # Wave ports (reference: palace/models/waveportoperator.cpp).  Other
         # wave ports' surfaces are Dirichlet for this port's mode problem
         # (their shared edges carry E_t = 0; waveportoperator.cpp:1083-1131).
@@ -180,6 +199,90 @@ class SpaceOperator:
         has_sigma = any(np.any(t != 0.0) for t in m.conductivity.values())
         self.C_dom = (nd_operator(self.space, mass_coef=m.conductivity,
                                   device=dev) if has_sigma else None)
+        self._build_floquet()
+
+    def _build_floquet(self):
+        """Quasi-periodic (Bloch/Floquet) volume terms.  The substitution
+        E_phys = E_per exp(-i k.x) turns curl-curl into
+        (mu^-1 curl u, curl v) + ((kx)^T mu^-1 kx u, v)
+        + i [(mu^-1 kx u, curl v) - (mu^-1 kx curl u, v)]
+        (reference: spaceoperator.cpp:1038-1056, materialoperator.cpp:
+        351-358, 371-446).  Without FloquetReferenceFrequency k is wrapped
+        into the first Brillouin zone of the mesh's bounding box; with it,
+        k = k0 omega with k0 = k_F / omega_ref and the two terms scale with
+        omega^2 and omega (driven only; materialoperator.cpp:394-427)."""
+        self.K_flo_mass = self.K_flo_cross = None
+        self.floquet_k: Optional[np.ndarray] = None
+        self.floquet_omega_ref = 0.0
+        kF_cfg = self.iodata.boundaries.floquet_wave_vector
+        if kF_cfg is None or not np.linalg.norm(kF_cfg) > 0:
+            return
+        from palace_torch.config import ProblemType
+        from palace_torch.fem.nd_operators import nd_cross_operator
+
+        ptype = self.iodata.problem.type
+        if ptype not in (ProblemType.DRIVEN, ProblemType.EIGENMODE):
+            raise ValueError(
+                "Floquet quasi-periodicity is only available for driven or "
+                "eigenmode solves (reference: materialoperator.cpp:386-389)")
+        units = self.iodata.units
+        k = np.asarray(kF_cfg, float)[:3] * units.mesh_length_scale
+        fref = self.iodata.boundaries.floquet_reference_frequency
+        wref = (2.0 * math.pi * fref / units.scale_factor(ValueType.FREQUENCY)
+                if fref > 0.0 else 0.0)
+        if wref > 0.0 and ptype is not ProblemType.DRIVEN:
+            raise ValueError("FloquetReferenceFrequency requires Driven")
+        if wref == 0.0:
+            # Wrap to [-pi/L, pi/L] per axis (materialoperator.cpp:406-420).
+            bb = self.mesh.nodes.max(axis=0) - self.mesh.nodes.min(axis=0)
+            for i in range(3):
+                half = math.pi / bb[i] if bb[i] > 0 else math.inf
+                if abs(k[i]) > half:
+                    k[i] = math.remainder(k[i], 2.0 * half)
+        else:
+            k = k / wref  # k0 = k_F / omega_ref
+        self.floquet_omega_ref = wref
+        self.floquet_k = k
+        kx = np.array([[0.0, -k[2], k[1]],
+                       [k[2], 0.0, -k[0]],
+                       [-k[1], k[0], 0.0]])
+        m = self.materials
+        self.K_flo_mass = nd_operator(
+            self.space, mass_coef={a: kx.T @ mi @ kx
+                                   for a, mi in m.inv_permeability.items()},
+            device=self.device)
+        self.K_flo_cross = nd_cross_operator(
+            self.space, {a: mi @ kx for a, mi in m.inv_permeability.items()},
+            device=self.device)
+        self._flo_csrs = None
+
+    def floquet_csrs(self) -> Tuple[sp.csr_matrix, sp.csr_matrix]:
+        """(mass CSR, cross CSR) of the Floquet volume terms (cached)."""
+        if self._flo_csrs is None:
+            self._flo_csrs = (self._csr(self._combine(self.K_flo_mass, [])),
+                              self._csr(self._combine(self.K_flo_cross, [])))
+        return self._flo_csrs
+
+    def floquet_mag_quad(self, x, omega: float, attrs=None) -> float:
+        """The Floquet part Re x^H (s^2 Fm + i s Fc) x of the magnetic-energy
+        quadratic form, from B = (curl E - i k x E) / (i omega) (reference:
+        linalg/floquetcorrection.hpp:28-33), on the elements with an
+        attribute in `attrs` (all by default); s = omega with
+        FloquetReferenceFrequency (k = k0 omega), else 1."""
+        if self.K_flo_mass is None:
+            return 0.0
+        s = omega if self.floquet_omega_ref > 0.0 else 1.0
+        x = np.ascontiguousarray(x, complex)
+        tot = 0.0
+        for b, e1, e2 in zip(self.mesh.buckets,
+                             self.K_flo_mass.element_energy(x),
+                             self.K_flo_cross.element_energy(x)):
+            v = 2.0 * (s * s * e1.real - s * e2.imag)
+            if attrs is not None:
+                v = v * torch.as_tensor(np.isin(b.attr, attrs),
+                                        device=v.device)
+            tot += float(torch.sum(v))
+        return tot
 
     def _build_boundary(self):
         """Robin boundary buckets for K (1/Ls), C (1/Rs + first-order
@@ -271,8 +374,7 @@ class SpaceOperator:
         """Boundary attributes whose H1 dofs are held Dirichlet in the
         divergence-free projection's auxiliary space (reference:
         spaceoperator.cpp:193-204, aux_bdr_marker = dbc | farfield |
-        surf_sigma | surf_Z Rs/Ls | lumped-port R/L | wave; Floquet ports
-        are refused in the constructor).
+        surf_sigma | surf_Z Rs/Ls | lumped-port R/L | wave | floquet).
 
         Gradients of H1 functions constrained on every lossy/port surface
         have zero tangential trace there, so g^H C x = 0 for any damped
@@ -294,10 +396,18 @@ class SpaceOperator:
                     attrs.update(el.attributes)
         for wp in iod.boundaries.wave_ports:
             attrs.update(wp.attributes)
+        for fp in iod.boundaries.floquet_ports:
+            attrs.update(fp.get("Attributes", []))
         return sorted(attrs)
 
     def stiffness_csr(self) -> sp.csr_matrix:
-        return self._csr(self._combine(self.K_dom, self.K_bdr))
+        """K, with the Floquet terms Fm + i Fc when they do not scale with
+        omega (no FloquetReferenceFrequency)."""
+        K = self._csr(self._combine(self.K_dom, self.K_bdr))
+        if self.K_flo_mass is not None and self.floquet_omega_ref == 0.0:
+            Fm, Fc = self.floquet_csrs()
+            K = (K + Fm + 1j * Fc).tocsr()
+        return K
 
     def damping_csr(self) -> Optional[sp.csr_matrix]:
         t = self._combine(self.C_dom, self.C_bdr)
@@ -310,7 +420,9 @@ class SpaceOperator:
         return M
 
     def system_csr(self, omega: float, K=None, C=None, M=None) -> sp.csr_matrix:
-        """A(omega) = K + i omega C - omega^2 M with PEC rows/cols set to
+        """A(omega) = K + i omega C - omega^2 M (+ omega^2 Fm + i omega Fc,
+        the Floquet terms under FloquetReferenceFrequency; reference:
+        spaceoperator.cpp:425-427, 459-461) with PEC rows/cols set to
         identity (DIAG_ONE policy)."""
         K = self.stiffness_csr() if K is None else K
         C = self.damping_csr() if C is None else C
@@ -318,6 +430,9 @@ class SpaceOperator:
         A = K.astype(complex) - (omega * omega) * M
         if C is not None:
             A = A + 1j * omega * C
+        if self.K_flo_mass is not None and self.floquet_omega_ref > 0.0:
+            Fm, Fc = self.floquet_csrs()
+            A = A + (omega * omega) * Fm + 1j * omega * Fc
         free = sp.diags((~self.ess_mask).astype(float))
         one = sp.diags(self.ess_mask.astype(float))
         return (free @ A @ free + one).tocsr()
@@ -335,6 +450,9 @@ class SpaceOperator:
         for idx, wp in self.wave_ports.items():
             if wp.excitation:
                 out.setdefault(wp.excitation, []).append(idx)
+        for idx, fp in self.floquet_ports.items():
+            if fp.excitation:
+                out.setdefault(fp.excitation, []).append(idx)
         if not out and (self.iodata.domains.current_dipoles
                         or self.iodata.boundaries.surface_currents):
             out[1] = []
@@ -352,6 +470,15 @@ class SpaceOperator:
         Ct = self._combine(self.C_dom, self.C_bdr)
         if Ct:
             terms.append(Term("C", Ct, coef=lambda w: 1.0j * w))
+        if self.K_flo_mass is not None:
+            scaled = self.floquet_omega_ref > 0.0
+            terms.append(Term(
+                "floquet_mass", self._combine(self.K_flo_mass, []),
+                coef=(lambda w: w * w + 0.0j) if scaled
+                else (lambda w: 1.0 + 0.0j)))
+            terms.append(Term(
+                "floquet_cross", self._combine(self.K_flo_cross, []),
+                coef=(lambda w: 1.0j * w) if scaled else (lambda w: 1.0j)))
         terms.append(Term("M", self._combine(self.M_re, self.M_bdr),
                           coef=lambda w: -(w * w) + 0.0j,
                           bcoef=(lambda w: w * w + 0.0j) if shifted else None))
@@ -432,11 +559,69 @@ class SpaceOperator:
         bk = self._abc2_curl_bucket()
         return self._free_csr([(bk.gidx, 1j * (0.5 / omega) * bk.A)])
 
+    def floquet_port_a2_csr(self, omega: float) -> Optional[sp.csr_matrix]:
+        """The full-rank Robin part of the Floquet ports' DtN term,
+        i gamma_00(omega) (mu^-1 u_t, v_t) on the port faces (reference:
+        floquetportoperator.cpp:980-996); the per-order low-rank correction
+        is `floquet_lowrank`."""
+        if not self.floquet_ports:
+            return None
+        if not hasattr(self, "_fp_mass_buckets"):
+            self._fp_mass_buckets = {}
+            for idx, fp in self.floquet_ports.items():
+                mi = self.materials.attr_tensor(
+                    self.materials.inv_permeability,
+                    self._trace_attrs(fp._tb.tr))
+                self._fp_mass_buckets[idx] = boundary_mass_bucket(fp._tb, mi)
+        tables = []
+        for idx, fp in self.floquet_ports.items():
+            fp.initialize(omega)
+            bk = self._fp_mass_buckets[idx]
+            tables.append((bk.gidx, 1j * fp.gamma0 * bk.A))
+        return self._free_csr(tables)
+
+    def floquet_lowrank(self, omega: float):
+        """(U, g) with F(omega) = U diag(g) U^H, the columns v_k PEC-masked,
+        or (None, None).  The rank-1 terms are g v v^H, not g conj(v) v^T,
+        as the reference's LowRankComplexOperator::AddMult
+        (floquetportoperator.cpp:32-56): the two agree at normal incidence
+        (conjugation maps order (m, n) to (-m, -n), with equal g) but differ
+        at oblique incidence, where gamma(m, n) != gamma(-m, -n)."""
+        cols, gs = [], []
+        free = ~self.ess_mask
+        for fp in self.floquet_ports.values():
+            for g, v in fp.lowrank_terms(omega):
+                cols.append(np.where(free, v, 0.0))
+                gs.append(g)
+        if not cols:
+            return None, None
+        return np.stack(cols, axis=1), np.asarray(gs)
+
+    def floquet_rhs2(self, excitation_idx: int, omega: float) -> np.ndarray:
+        """The incident plane wave of the Floquet ports this excitation
+        drives (floquetportoperator.cpp:876-915)."""
+        rhs = np.zeros(self.space.num_dofs, complex)
+        for fp in self.floquet_ports.values():
+            if fp.excitation == excitation_idx:
+                rhs += fp.excitation_rhs(omega, self.space.num_dofs)
+        return np.where(self.ess_mask, 0.0, rhs)
+
+    def floquet_sparams(self, E: np.ndarray, omega: float,
+                        excitation_idx: int):
+        """{port: {(m, n, is_te): S}} over the Floquet ports."""
+        return {idx: fp.s_parameters(np.asarray(E), omega,
+                                     subtract_incident=(
+                                         fp.excitation == excitation_idx))
+                for idx, fp in self.floquet_ports.items()}
+
     def a2_csr(self, omega: float) -> Optional[sp.csr_matrix]:
-        """A2(omega): the sum of the three terms above, or None."""
+        """A2(omega): the sum of the three terms above and the Floquet
+        ports' Robin term, or None."""
         parts = [A for A in (self.waveport_a2_csr(omega),
                              self.abc2_a2_csr(omega),
-                             self.conductivity_a2_csr(omega)) if A is not None]
+                             self.conductivity_a2_csr(omega),
+                             self.floquet_port_a2_csr(omega))
+                 if A is not None]
         return sum(parts[1:], parts[0]).tocsr() if parts else None
 
     def waveport_rhs2(self, excitation_idx: int, omega: float) -> np.ndarray:

@@ -241,9 +241,16 @@ class StructuredTermApply:
               dtype: torch.dtype = torch.float64,
               layout: str = "natural") -> "StructuredTermApply":
         """Raises ValueError unless every term is a single uniform domain
-        element table on a single-hex-bucket box grid."""
+        element table on a single-hex-bucket box grid that is not periodic.
+        A periodic mesh is refused outright: the zero-padded lattice stencil
+        drops the couplings across the wrap and cannot carry a Bloch
+        phase."""
         if layout not in LAYOUTS:
             raise ValueError(f"unknown lattice layout {layout!r}")
+        if space.mesh.node_ident is not None:
+            raise ValueError(
+                "structured: periodic mesh (the zero-padded lattice stencil "
+                "drops the wrap couplings and cannot carry a Bloch phase)")
         if len(space.mesh.buckets) != 1:
             raise ValueError("structured: single-bucket mesh required")
         gd = np.asarray(space.elem_dofs[0])

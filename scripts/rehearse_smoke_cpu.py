@@ -5,18 +5,24 @@ Every run a phase sends to the GPU goes to the CPU instead (the device
 resolver answers "cpu" and the CUDA timing calls do nothing), so a phase's
 GPU-against-CPU parity compares the CPU with itself and its times are CPU
 times: use it to find faults and to size a phase before its first chip
-call, never as a device measurement.  `--factor` times the transient
+call, never as a device measurement (the element fine level's CUDA
+timing, `chip_smoke._elem_apply_report`, is not run: its line prints
+nan).  `--factor` times the transient
 driver's host factorizations (scipy splu of M and of A = M + dt^2 K, and
 one solve) on the TEM line of `palace_torch.cases.write_tem_line_case`;
 `--line LENGTH N_LEN N_CROSS MAX_TIME` runs phase 22 on another line
 (mm, box_tet cells along and across, ns), to read its oracles at another
-depth than the chip's.
+depth than the chip's.  `--card` leaves the GPU in place and runs the
+named phases alone on the card (after the card line), on
+chip_smoke.THREADS threads as in the smoke run's processes: their times
+are then those of the phases alone on the GPU.
 
 Run from the repository root:
     python scripts/rehearse_smoke_cpu.py phase_transient phase_transient_parity
     python scripts/rehearse_smoke_cpu.py --factor 40 24 8
     python scripts/rehearse_smoke_cpu.py --line 40 24 8 0.4 phase_transient
-Torch runs on RT threads (default 4)."""
+    python3 scripts/rehearse_smoke_cpu.py --card phase_floquet_eigen
+Torch runs on RT threads (default 4) without `--card`."""
 
 from __future__ import annotations
 
@@ -82,6 +88,10 @@ def main(argv) -> int:
         return 0
     import chip_smoke
 
+    if argv[:1] == ["--card"]:
+        print(chip_smoke.phase_card(), flush=True)
+        torch.set_num_threads(chip_smoke.THREADS)
+        return run_phases(chip_smoke, argv[1:], "GPU")
     if argv[:1] == ["--line"]:
         length, n_len, n_cross = float(argv[1]), int(argv[2]), int(argv[3])
         chip_smoke.TEM_LINE = (length, n_len, n_cross, 2)
@@ -95,13 +105,24 @@ def main(argv) -> int:
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.memory_allocated = lambda *a, **k: 0
+    # The element fine level's timing needs CUDA events: no CPU stand-in.
+    chip_smoke._elem_apply_report = lambda sop, omegas: dict.fromkeys(
+        ("ms", "device_ms", "bound_ms", "bytes", "columns", "terms",
+         "elements"), float("nan")) | {"bound_by": "not timed on the CPU"}
+    return run_phases(chip_smoke, argv, "CPU")
 
+
+def run_phases(chip_smoke, names, where: str) -> int:
+    """Run the named chip_smoke phases in one work directory; print each
+    one's wall time and their total."""
+    t_all = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
-        for name in argv:
+        for name in names:
             t0 = time.perf_counter()
             getattr(chip_smoke, name)(workdir)
-            print(f"{name}: {time.perf_counter() - t0:.1f} s (CPU)",
+            print(f"{name}: {time.perf_counter() - t0:.1f} s ({where})",
                   flush=True)
+    print(f"total {time.perf_counter() - t_all:.1f} s ({where})", flush=True)
     return 0
 
 

@@ -121,7 +121,7 @@ def test_solver_routing(tmp_path):
 @pytest.mark.parametrize("feature,item", [
     ("amr", "nonconforming ND AMR"),
     ("paraview", None),  # ported: the driven sweep writes its VTU files
-    ("floquet", "Floquet ports and Floquet eigenmode"),
+    ("floquet", None),  # ported: the Bloch terms join the device sweep
 ])
 def test_unported_features_name_roadmap_item(tmp_path, feature, item):
     iodata = IoData(write_slice_case(str(tmp_path), 2, 1, device="CPU",
@@ -134,7 +134,15 @@ def test_unported_features_name_roadmap_item(tmp_path, feature, item):
         iodata.problem.output_formats.paraview = True
         iodata.solver.driven.save_freqs = [2.0, 5.5]
     if item is None:
-        driven.solve(iodata, output_dir=str(tmp_path / "out"))
+        res = driven.solve(iodata, output_dir=str(tmp_path / "out"))
+        if feature == "floquet":
+            names = [t.name for t in res["sop"].driven_terms()]
+            assert {"floquet_mass", "floquet_cross"} <= set(names)
+            assert res["provenance"]["solver_path"] == "device"
+            dom = np.loadtxt(tmp_path / "out" / "domain-E.csv",
+                             delimiter=",", skiprows=1)
+            assert dom.shape == (8, 5) and np.isfinite(dom).all()
+            return
         pv = tmp_path / "out" / "paraview" / "driven"
         assert sorted(os.listdir(pv)) == ["driven.pvd", "driven_0000.vtu",
                                           "driven_0001.vtu"]

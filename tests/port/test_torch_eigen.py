@@ -199,8 +199,8 @@ _UNPORTED = {
     "nonlinear": (None, lambda c: c["Boundaries"].update(
         PEC={"Attributes": [2, 3, 4, 5, 6]},
         Absorbing={"Attributes": [1], "Order": 2}), None),
-    "floquet": ("Floquet eigenmode", lambda c: c["Boundaries"].update(
-        Periodic={"FloquetWaveVector": [0.1, 0.0, 0.0]}), None),
+    "floquet": (None, lambda c: c["Boundaries"].update(
+        Periodic={"FloquetWaveVector": [0.1, 0.0, 0.0]}), "eig.csv"),
     "surface": (None, lambda c: c["Boundaries"].update(Postprocessing={
         "SurfaceFlux": [{"Index": 1, "Attributes": [1],
                          "Type": "Electric"}]}), "surface-F.csv"),
