@@ -110,7 +110,7 @@ result line):
      on the GPU and on the CPU; port-S.csv and domain-E.csv within 1e-8;
  18. damped eigenmode: palace_torch.run on the copper-walled WR-90
      cavity (22.86 x 10.16 x 30 mm, Impedance Rs 0.02369 Ohm on all six
-     faces, 8 x 4 x 10 hexes, Order 3, 28,722 dofs, 2 modes near 8 GHz, Tol
+     faces, 6 x 3 x 8 hexes, Order 3, 13,335 dofs, 2 modes near 8 GHz, Tol
      1e-8) on the GPU; checks the quadratic JD path with its strong-damping
      seed, TE101's Re f (1e-6) and Q (1e-4) against the analytic cavity and
      wall-loss Q_c (palace_torch/cases.py:te10l_qc), every backward error,
@@ -153,7 +153,7 @@ result line):
      indicators, the timers and the run's peak memory;
  23. transient and outputs, card against host: the four schemes on the
      10 mm line, Order 2 (13 steps): GeneralizedAlpha and RungeKutta at
-     6^3 (9,324 dofs), ARKODE and CVODE at 4 x 3 x 3 (1,718 dofs) and at
+     5^3 (5,530 dofs), ARKODE and CVODE at 4 x 3 x 3 (1,718 dofs) and at
      the default RelTol 1e-4, AbsTol 1e-9: port-V/I, domain-E and probe
      tables within 1e-10 and error-indicators.csv within 1e-8, the other
      schemes within 5e-2 of GeneralizedAlpha on the same line; the 6^3
@@ -165,7 +165,7 @@ result line):
      (0.1 and 0.15) and polarization (0.1) on the GPU, farfield-rE.csv
      within 1e-8;
  24. Floquet eigenmode: the 1 cm cube periodic in x with PEC y and z faces
-     at FloquetWaveVector [2, 0, 0] /cm (box_tet 6^3, Order 3, 25,506
+     at FloquetWaveVector [2, 0, 0] /cm (box_tet 5^3, Order 3, 14,940
      dofs, 2 modes at Target 17 GHz, Tol 1e-9) on the GPU; checks the host
      shift-invert path (ARPACK, which="LR") with every indicator mass
      solve (the Floquet RT projection of k x E included) on the device CG,
@@ -202,17 +202,51 @@ result line):
      of 1, arg T within 0.5 deg of -k_z d; (c) an eps_r 4 slab over 0.75
      <= z <= 1.25 cm: |T|^2 within 2e-3 of the Airy value 0.83794, |R|^2 +
      |T|^2 within 1e-4 of 1; the empty cell at box_tet 3 x 3 x 6, Order 2
-     on the GPU and on the CPU: port-floquet-S.csv within 1e-8.
-Neither structured-apply kernel runs on phases 10-26 (element-mode
+     on the GPU and on the CPU: port-floquet-S.csv within 1e-8;
+ 27. 2D meshes on the device solvers: the matched parallel-plate line (20
+     x 2 mm, 140 x 14 cells of two triangles, Order 3, 41,622 dofs) between
+     two lumped ports of R = eta0 d / Lc (unit depth) at 4, 8, 12 and 16
+     GHz, GMG Tol 1e-8, on the GPU: the device solver on every column with
+     the element fine level (the structured one refuses 2D meshes), every
+     relres and host residual, |S11| and ||S21| - 1| below 1e-6, arg S21
+     within 1e-6 rad of -k0 L, E_mag 0, every indicator mass solve on the
+     device CG; prints the element fine level's apply (device time, bound,
+     calls); the PEC WR-90 rectangle (12 x 6 cells, Order 3, 1,566 dofs,
+     3 modes near 5 GHz, Tol 1e-9) on device Lanczos: the (1, 0), (2, 0)
+     and (0, 1) modes within 1e-7 of the analytic ones, backward errors
+     below 1e-9; both at small sizes on the GPU and on the CPU: the line's
+     port-V/I and domain-E within 1e-8 (of each table's largest value),
+     Re f within 1e-8;
+ 28. BoundaryMode on native 2D meshes: the PEC WR-90 cross-section (24 x
+     12 cells, Order 3, 8,857 ND + H1 dofs) at 10 GHz on the GPU (host
+     splu and ARPACK of the mode pencil, indicators' mass solves on the
+     device CG): TE10's n_eff within 1e-7 of sqrt(1 - (c0 / (2 a f))^2)
+     and the second mode evanescent; the parallel-plate TEM cross-section
+     (10 x 2 mm, eps_r 2.25): n_eff = 1.5 and Z_PV = eta0 d / (w sqrt(eps_r))
+     within 1e-8; the open, lossy cross-section (an Ls sheet, a first-order
+     Absorbing wall, tan delta 0.01, an interface layer) at 6 x 3, Order 2
+     on the GPU and on the CPU: mode-kn, |mode-V|, mode-Z, domain-E,
+     surface-Q and error-indicators within 1e-8;
+ 29. BoundaryMode on a 3D mesh's port face: the x = 0 face of the box_tet
+     WR-90 guide (2 x 24 x 12 cells, Order 3; the submesh extraction, the
+     material rotation and the other wave port relabelled PEC) at 10 GHz
+     on the GPU: TE10's n_eff within 1e-7 of the analytic value and within
+     1e-8 of phase 28's; and the matched 2D line (20 mm, 40 x 4 cells,
+     Order 2) in the time domain (GeneralizedAlpha, phase 22's pulse and
+     steps): peak |V2| within 8% of peak |V1| and the envelope delay
+     within 5% of L / c0.
+Neither structured-apply kernel runs on phases 10-29 (element-mode
 operators and the element fine level, plain torch; the transient step is
-a host splu, the Floquet eigensolve ARPACK and the Floquet-port solves
-sparse direct); the kernel record counts their launches there (0).
+a host splu, the Floquet eigensolve ARPACK, the Floquet-port solves
+sparse direct and the mode pencils host splu and ARPACK); the kernel
+record counts their launches there (0).
 Peak device memory is each run's own: its peak above what was allocated
 when it started (`_memory_mark`).
 Phases 1-3 and then 22 run alone; after them the phases run in three
-processes on the one card: phases 4-9 and 24 in this one, phases 14-17,
-21 and 26 and phases 10-13, 18-20, 23 and 25 in two more (`python3 chip_smoke.py --phases
-GROUP DIR`, which the script starts itself and stops with it), so that
+processes on the one card: phases 4-9, 24 and 27 in this one, phases
+14-16, 21 and 26 and phases 10-13, 17-20, 23, 25, 28 and 29 in two more
+(`python3 chip_smoke.py --phases GROUP DIR`, which the script starts
+itself and stops with it), so that
 their lines interleave and their times include the other processes'
 share of the card and of the host; each process counts its own kernel
 launches.
@@ -316,8 +350,12 @@ MU0, ETA0, COPPER_SIGMA = 1.25663706127e-6, 376.730313412, 5.8e7
 GUIDE_GATES = {"S21": 1e-6, "S11": 1e-6, "phase": 1e-4, "kn": 1e-6}
 #: Phase 18's copper-walled WR-90 cavity (hexes along a, b, d, and the
 #: order) and its ND dofs; phase 19's shorted guide (hexes along the guide,
-#: a and b, and the order) and its ND dofs; phase 21's small versions.
-CAVITY_CU, CAVITY_CU_DOFS = (8, 4, 10, 3), 28722
+#: a and b, and the order) and its ND dofs; phase 21's small versions.  The
+#: cavity was cut from 8 x 4 x 10 (28,722 dofs) so that phases 27-29 fit:
+#: TE101's Re f error 1.215e-8 -> 6.965e-8 (gate 1e-6) and Q's 2.584e-8 ->
+#: 1.361e-7 (gate 1e-4); the host JD took 92.99 s of phase 18 on the H100
+#: (shared) before the cut, 16.38 s on the CPU after it.
+CAVITY_CU, CAVITY_CU_DOFS = (6, 3, 8, 3), 13335
 GUIDE_EIGEN, GUIDE_EIGEN_DOFS = (18, 4, 3, 3), 20055
 SMALL_CAVITY_CU, SMALL_GUIDE_EIGEN = (4, 2, 5, 2), (9, 4, 3, 2)
 #: Phase 20's tet AMR cases (box_tet n^3, the order, and MaxIts of the
@@ -351,7 +389,10 @@ TEM_DT, TEM_MAX_T = 0.002, 0.25
 #: Phase 23's lines, 10 mm long, Order 2, and the pulse of
 #: tests/test_driven_transient.py:343 (a 10 GHz ModulatedGaussian of width
 #: 0.08 ns, 13 steps of 0.005 ns).  GeneralizedAlpha and RungeKutta run on
-#: the 6^3 line of tests/test_driven_transient.py:24 (9,324 dofs), which
+#: a 5^3 line (5,530 dofs; cut from the 6^3 line of
+#: tests/test_driven_transient.py:24, 9,324 dofs, so that phases 27-29 fit:
+#: RungeKutta against GeneralizedAlpha 8.860e-3 -> 8.959e-3, gate 5e-2;
+#: the surface line's Power flux 1.01260 -> 1.01795 W, gate 0.05), which
 #: also carries the driven surface tables.  The adaptive schemes run on a
 #: 4 x 3 x 3 line (1,718 dofs) at the reference's default RelTol 1e-4 and
 #: AbsTol 1e-9, with GeneralizedAlpha beside them on the GPU as their
@@ -362,7 +403,7 @@ TEM_DT, TEM_MAX_T = 0.002, 0.25
 #: from tests/test_farfield_dipole.py's 8^3, 21,424 dofs, whose device
 #: solves took 40 s a run on the CPU; on the CPU at 7^3 the |rE| ratios
 #: are 1.6% and 7.4% from sin 45 and sin 30, at 8^3 0.8% and 0.7%).
-LINE, ADAPTIVE_LINE = (10.0, 6, 6, 2), (10.0, 4, 3, 2)
+LINE, ADAPTIVE_LINE = (10.0, 5, 5, 2), (10.0, 4, 3, 2)
 #: Phases 24-26's Floquet cases (palace_torch/cases.py): the 1 cm cube
 #: periodic in x with PEC y and z faces at Floquet wave number FLOQUET_K
 #: (1/cm), box_tet n^3 and the order, and their ND dofs; the eigen case at
@@ -371,7 +412,11 @@ LINE, ADAPTIVE_LINE = (10.0, 6, 6, 2), (10.0, 4, 3, 2)
 #: over 1 x 1 x 2 cm, periodic in x and y) at 12 GHz, its small case, and
 #: the dielectric slab (z0, z1 in cm, eps_r) of run (c).
 FLOQUET_K = 2.0
-FLOQUET_BOX, FLOQUET_BOX_DOFS = (6, 3), 25506
+#: The forward pair's box, cut from box_tet 6^3 (25,506 dofs) so that
+#: phases 27-29 fit: its error 1.360e-8 -> 3.988e-8 (gate 1e-4); its host
+#: shift-invert took 166.19 s of phase 24 on the H100 (shared) before the
+#: cut, 15.82 s on the CPU after it.
+FLOQUET_BOX, FLOQUET_BOX_DOFS = (5, 3), 14940
 #: The backward branch's solve, cut from FLOQUET_BOX so that phases 24-26
 #: fit next to phases 4-23 (on the H100 the two host shift-invert solves
 #: at 6^3 took 161.8 s of phase 24; the backward mode's error is 8.342e-6
@@ -384,11 +429,35 @@ FLOQUET_CELL_F, FLOQUET_SLAB = 12.0, (0.75, 1.25, 4.0)
 LINE_PULSE = dict(excitation_freq=10.0, excitation_width=0.08,
                   max_time=0.06, time_step=0.005)
 DIPOLE = (7, 2)
+#: Phases 27-29's 2D decks (palace_torch/cases.py, on `rect_mesh`): the
+#: matched plate line (length mm, cells along it and across its 2 mm, the
+#: order) and its ND dofs, swept at PLATE_FREQS (GHz); the PEC WR-90
+#: rectangle's eigensolve (cells, order) and its dofs; the BoundaryMode
+#: WR-90 cross-section at 10 GHz (cells, order); the TEM cross-section
+#: (cells over its 10 x 2 mm, order; eps_r 2.25); the box_tet guide whose
+#: x = 0 face carries phase 29's mode solve (cells along, across a and b,
+#: order); the 2D transient line (length mm, cells, order); and the small
+#: GPU-against-CPU cases.  Sized by the CPU rehearsal
+#: (scripts/rehearse_smoke_cpu.py): the line's S and arg S21 are exact to
+#: round-off at any depth (1e-11 deg at 100 and 140 cells), the
+#: rectangle's modes are within 2.3e-8 of the analytic ones at 12 x 6,
+#: Order 3 (3.7e-10 at 24 x 12) and TE10's kn within 2.8e-10 at 12 x 6,
+#: Order 3 (4.4e-12 at 24 x 12; 2.8e-14 at 48 x 24, whose host pencil
+#: solves took 22.3 and 27.3 s of phases 28 and 29 in a shared run on the
+#: H100, against 1.64 and 2.26 s for the runs at 24 x 12 on the CPU).
+PLATE_LINE, PLATE_LINE_DOFS = (20.0, 140, 14, 3), 41622
+PLATE_FREQS = (4.0, 8.0, 12.0, 16.0)
+RECT_EIGEN, RECT_EIGEN_DOFS = (12, 6, 3), 1566
+BM_SECTION, TEM_SECTION, BM_FACE = (24, 12, 3), (20, 4, 2), (2, 24, 12, 3)
+LINE_2D = (20.0, 40, 4, 2)
+SMALL_PLATE_LINE, SMALL_RECT_EIGEN, SMALL_BM = (20.0, 10, 2, 2), (4, 2, 3), \
+    (6, 3, 2)
 #: After phases 3 and 22, which run alone (so that the kernels and the
-#: transient step are timed alone), phases 4-9 run in this process and
-#: two groups of phases (`GROUPS`) in processes of their own on the same
-#: card; each process counts its own kernel launches and runs torch (the
-#: groups also their BLAS) on a third of the host's cores, rounded up.
+#: transient step are timed alone), phases 4-9, 24 and 27 run in this
+#: process and two groups of phases (`GROUPS`) in processes of their own
+#: on the same card; each process counts its own kernel launches and runs
+#: torch (the groups also their BLAS) on a third of the host's cores,
+#: rounded up.
 GROUP_FLAG, GROUP_RESULT = "--phases", "paths.json"
 THREADS = -(-(os.cpu_count() or 3) // 3)
 #: The whole run's time limit (s), less a margin for the last lines.
@@ -2700,12 +2769,278 @@ def phase_floquet_cell(workdir: str):
     return 0
 
 
+def _complex_cols(tab):
+    """The complex values of a table whose columns after the first come
+    in (Re, Im) pairs."""
+    return tab[:, 1::2] + 1j * tab[:, 2::2]
+
+
+def _abs_rel(a, b) -> float:
+    """max |a - b| / max |b| over the whole table after its first column
+    (a column that sits at round-off, such as Im V of a real port voltage,
+    is measured against the table's scale)."""
+    import numpy as np
+
+    return float(np.abs(a[:, 1:] - b[:, 1:]).max() / np.abs(b[:, 1:]).max())
+
+
+def phase_2d(workdir: str):
+    """2D meshes on the device solvers: the matched plate line at full
+    depth (device FGMRES + p-MG on the element fine level; the structured
+    fine level refuses 2D), the PEC rectangle's modes on device Lanczos,
+    and both at small sizes on the GPU and on the CPU."""
+    import numpy as np
+
+    import palace_torch
+    from palace_torch.cases import (rect_mode_freq, write_plate_line_case,
+                                    write_rect_eigen_case)
+
+    t_phase = time.perf_counter()
+    length, n_len, n_h, p = PLATE_LINE
+    cfg = write_plate_line_case(os.path.join(workdir, "plate"), *PLATE_LINE,
+                                freqs=PLATE_FREQS, tol=1e-8, device="GPU",
+                                verbose=0)
+    with _ElemApplies() as applies:
+        res, wall, peak = _gpu_run(cfg, "2d-driven")
+    sop, prov = res["sop"], res["provenance"]
+    check(sop.space.num_dofs == PLATE_LINE_DOFS,
+          f"2d-driven: unexpected dof count {sop.space.num_dofs}")
+    check(prov.get("fine_level") == "element",
+          f"2d-driven: fine level {prov.get('fine_level')}")
+    relres, resid = _uniform_checks("2d-driven", res)
+    route = _device_route("2d-driven", prov)
+    S = _table(os.path.join(res["post_dir"], "port-S.csv"))
+    s11 = float((10.0 ** (S[:, 1] / 20.0)).max())
+    s21 = float(np.abs(10.0 ** (S[:, 3] / 20.0) - 1.0).max())
+    k0L = 2 * math.pi * S[:, 0] * 1e9 / C0 * length * 1e-3
+    dphi = float(np.abs(np.angle(np.exp(1j * (np.radians(S[:, 4]) + k0L))))
+                 .max())
+    check(s11 <= 1e-6 and s21 <= 1e-6 and dphi <= 1e-6,
+          f"2d-driven: |S11| {s11:.3e}, ||S21| - 1| {s21:.3e}, arg S21 + "
+          f"k0 L {dphi:.3e} rad (gates 1e-6)")
+    dom = _table(os.path.join(res["post_dir"], "domain-E.csv"))
+    check(np.all(dom[:, 2] == 0.0), "2d-driven: E_mag not 0 on a 2D mesh")
+    rep = _elem_apply_report(sop, res["omegas"])
+    tabs = {}
+    for dev in ("GPU", "CPU"):
+        r = palace_torch.run(write_plate_line_case(
+            os.path.join(workdir, f"plate_{dev}"), *SMALL_PLATE_LINE,
+            freqs=PLATE_FREQS, tol=1e-12, device=dev, verbose=0))
+        check(r["provenance"].get("solver_path") == "device",
+              f"2d-driven ({dev}): {r['provenance'].get('solver_path')}")
+        tabs[dev] = {name: _table(os.path.join(r["post_dir"], name))
+                     for name in ("port-V.csv", "port-I.csv",
+                                  "domain-E.csv")}
+    par = max(_abs_rel(tabs["GPU"][n], tabs["CPU"][n]) for n in tabs["GPU"])
+    check(par <= 1e-8, f"2d-driven: GPU vs CPU {par:.3e}")
+
+    nx, ny, pe = RECT_EIGEN
+    cfg = write_rect_eigen_case(os.path.join(workdir, "rect"), *RECT_EIGEN,
+                                linear="GMG", device="GPU", verbose=0)
+    eres, ewall, epeak = _gpu_run(cfg, "2d-eigen")
+    eprov = eres["provenance"]
+    check(eres["num_dofs"] == RECT_EIGEN_DOFS,
+          f"2d-eigen: unexpected dof count {eres['num_dofs']}")
+    check(eprov.get("eigen_path") == "device-lanczos"
+          and eprov.get("fine_level") == "element",
+          f"2d-eigen: {eprov.get('eigen_path')}, {eprov.get('fine_level')}")
+    eroute = _device_route("2d-eigen", eprov)
+    f = np.real(eres["frequencies_ghz"])
+    ref = np.array([rect_mode_freq(*mn) for mn in ((1, 0), (2, 0), (0, 1))])
+    ferr = float(np.abs(f / ref - 1.0).max())
+    check(len(f) == 3 and ferr <= 1e-7, f"2d-eigen: modes {f} GHz against "
+                                        f"{ref} ({ferr:.3e} > 1e-7)")
+    bkwd = float(np.max(eres["backward_errors"]))
+    check(bkwd <= 1e-9, f"2d-eigen: backward error {bkwd:.3e}")
+    eig = {}
+    for dev in ("GPU", "CPU"):
+        r = palace_torch.run(write_rect_eigen_case(
+            os.path.join(workdir, f"rect_{dev}"), *SMALL_RECT_EIGEN,
+            modes=2, linear="GMG", device=dev, verbose=0))
+        eig[dev] = _table(os.path.join(r["post_dir"], "eig.csv"))[:, 1]
+    epar = float(np.abs(eig["GPU"] / eig["CPU"] - 1.0).max())
+    check(epar <= 1e-8, f"2d-eigen: Re f GPU vs CPU {epar:.3e}")
+    print(f"[27 2d] plate line {length:g} x 2 mm, {n_len}x{n_h} cells x 2 "
+          f"tris p={p}: {PLATE_LINE_DOFS} dofs, {len(PLATE_FREQS)} columns, "
+          f"FGMRES iterations {res['ksp'].get('total_its')}, max relres "
+          f"{relres:.3e}, host residual {resid:.3e}; |S11| {s11:.3e}, "
+          f"||S21| - 1| {s21:.3e}, |arg S21 + k0 L| {dphi:.3e} rad; "
+          f"estimator mass solves {route}; element fine level "
+          f"(E={rep['elements']}, {rep['terms']} terms, F={rep['columns']}, "
+          f"{rep['bytes'] / 1e9:.4f} GB) median {rep['ms']:.4f} ms, device "
+          f"{rep['device_ms']:.4f} ms, bound {rep['bound_ms']:.4f} ms "
+          f"({rep['bound_by']}), {applies.count} applies in the run; "
+          f"{_durations(res['post_dir'])}, run {wall:.2f} s, peak "
+          f"{peak / 2 ** 30:.3f} GiB; GPU vs CPU at "
+          f"{SMALL_PLATE_LINE[1]}x{SMALL_PLATE_LINE[2]} "
+          f"p={SMALL_PLATE_LINE[3]} {par:.3e}; rectangle {nx}x{ny} p={pe}: "
+          f"{eres['num_dofs']} dofs, device Lanczos, Re f "
+          f"{', '.join(f'{v:.9f}' for v in f)} GHz (analytic "
+          f"{', '.join(f'{v:.9f}' for v in ref)}; {ferr:.3e}), backward "
+          f"error {bkwd:.3e}, FGMRES iterations "
+          f"{eprov.get('ksp_iterations')}, estimator mass solves {eroute}; "
+          f"{_durations(eres['post_dir'])}, run {ewall:.2f} s, peak "
+          f"{epeak / 2 ** 30:.3f} GiB; Re f GPU vs CPU at "
+          f"{SMALL_RECT_EIGEN[0]}x{SMALL_RECT_EIGEN[1]} "
+          f"p={SMALL_RECT_EIGEN[2]} {epar:.3e}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
+def _mode_run(cfg: str, tag: str):
+    """One BoundaryMode run on the GPU: (result, mode-kn table, wall
+    seconds, peak memory); checks the host pencil path, that no structured
+    kernel ran and that every indicator mass solve stayed on the device
+    CG."""
+    res, wall, peak = _gpu_run(cfg, tag)
+    prov = res["provenance"]
+    check(prov.get("eigen_path") == "host-arpack",
+          f"{tag}: mode path {prov.get('eigen_path')}")
+    _device_route(tag, prov)
+    return res, _table(os.path.join(res["post_dir"], "mode-kn.csv")), wall, \
+        peak
+
+
+#: The open, lossy WR-90 cross-section of phase 28's GPU-against-CPU run
+#: (tests/port/test_torch_boundarymode.py's OPEN).
+BM_OPEN = dict(sheet_ls=1e-12, absorbing=True, loss_tan=0.01, eps_r=2.0,
+               dielectric=True)
+
+
+def phase_boundarymode(workdir: str):
+    """BoundaryMode on native 2D meshes: the WR-90 cross-section's TE10
+    and the parallel-plate TEM cross-section against their analytic modes,
+    and the open lossy cross-section on the GPU and on the CPU; returns
+    TE10's n_eff, which phase 29 holds its port face's against."""
+    import numpy as np
+
+    import palace_torch
+    from palace_torch.cases import (MODE_FREQ, TEM_D, TEM_EPS, TEM_W,
+                                    te10_kn, tem_section_z,
+                                    write_boundarymode_case,
+                                    write_tem_section_case)
+
+    t_phase = time.perf_counter()
+    f_ghz = MODE_FREQ
+    res, kn, wall, peak = _mode_run(write_boundarymode_case(
+        os.path.join(workdir, "bm"), *BM_SECTION, device="GPU", verbose=0),
+        "boundarymode")
+    k0 = 2 * math.pi * f_ghz * 1e9 / C0
+    neff, neff_ref = float(kn[0, 3]), te10_kn(f_ghz) / k0
+    err = abs(neff / neff_ref - 1.0)
+    check(err <= 1e-7 and abs(kn[0, 4]) <= 1e-9,
+          f"boundarymode: TE10 n_eff {neff:.10f}{kn[0, 4]:+.2e}i against "
+          f"{neff_ref:.10f} ({err:.3e} > 1e-7)")
+    check(abs(kn[1, 1]) < 1e-6 * abs(kn[1, 2]),
+          f"boundarymode: second mode kn {kn[1, 1]} + {kn[1, 2]}i is not "
+          f"evanescent")
+    dofs = res["problem"].nd.num_dofs + res["problem"].h1.num_dofs
+    w, h, eps = TEM_W, TEM_D, TEM_EPS
+    tres, tkn, twall, _ = _mode_run(write_tem_section_case(
+        os.path.join(workdir, "tem"), *TEM_SECTION, device="GPU", verbose=0),
+        "tem-section")
+    z = _table(os.path.join(tres["post_dir"], "mode-Z.csv"))
+    tn = abs(tkn[0, 3] / math.sqrt(eps) - 1.0)
+    tz = abs(z[0, 1] / tem_section_z() - 1.0)
+    check(tn <= 1e-8 and tz <= 1e-8, f"tem-section: n_eff error {tn:.3e}, "
+                                     f"Z_PV error {tz:.3e} (gates 1e-8)")
+    tabs = {}
+    names = ("mode-kn.csv", "mode-V.csv", "mode-Z.csv", "domain-E.csv",
+             "surface-Q.csv", "error-indicators.csv")
+    for dev in ("GPU", "CPU"):
+        r = palace_torch.run(write_boundarymode_case(
+            os.path.join(workdir, f"bm_{dev}"), *SMALL_BM, **BM_OPEN,
+            device=dev, verbose=0))
+        tabs[dev] = {n: _table(os.path.join(r["post_dir"], n))
+                     for n in names}
+    par = 0.0
+    for n in names:
+        a, b = tabs["GPU"][n], tabs["CPU"][n]
+        if n == "mode-V.csv":  # the phase ties on a symmetric mesh: |V|
+            a, b = np.abs(_complex_cols(a)), np.abs(_complex_cols(b))
+            par = max(par, float(np.abs(a - b).max() / np.abs(b).max()))
+        else:
+            par = max(par, _rel_diff(a, b))
+    check(par <= 1e-8, f"boundarymode: open section GPU vs CPU {par:.3e}")
+    print(f"[28 boundarymode] WR-90 cross-section {BM_SECTION[0]}x"
+          f"{BM_SECTION[1]} cells x 2 tris p={BM_SECTION[2]}: {dofs} dofs "
+          f"(ND + H1), {f_ghz:g} GHz: TE10 n_eff {neff:.10f} (analytic "
+          f"{neff_ref:.10f}, {err:.3e}), mode 2 evanescent (Im kn "
+          f"{kn[1, 2]:.4f} 1/m); {_durations(res['post_dir'])}, run "
+          f"{wall:.2f} s, peak {peak / 2 ** 30:.3f} GiB; TEM section "
+          f"{w:g} x {h:g} mm, eps_r {eps:g}, {TEM_SECTION[0]}x"
+          f"{TEM_SECTION[1]} p={TEM_SECTION[2]}: n_eff error {tn:.3e}, Z_PV "
+          f"{z[0, 1]:.6f} Ohm (error {tz:.3e}), run {twall:.2f} s; open "
+          f"lossy section (Ls sheet, Absorbing, tan delta 0.01, interface) "
+          f"at {SMALL_BM[0]}x{SMALL_BM[1]} p={SMALL_BM[2]}: GPU vs CPU "
+          f"{par:.3e}; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return neff
+
+
+def phase_boundarymode_3d(workdir: str, neff28: float | None = None):
+    """BoundaryMode on the port face of a 3D tet mesh against the analytic
+    TE10 and phase 28's native cross-section, and the matched 2D line's
+    transient: the pulse crosses it in L / c0."""
+    import numpy as np
+
+    from palace_torch.cases import (MODE_FREQ, te10_kn, write_plate_line_case,
+                                    write_port_face_mode_case)
+
+    t_phase = time.perf_counter()
+    f_ghz = MODE_FREQ
+    res, kn, wall, peak = _mode_run(write_port_face_mode_case(
+        os.path.join(workdir, "bm_face"), *BM_FACE, device="GPU", verbose=0),
+        "boundarymode-3d")
+    sub = res["problem"].mesh
+    check(sub.nodes.shape[1] == 2, "boundarymode-3d: the submesh is not 2D")
+    k0 = 2 * math.pi * f_ghz * 1e9 / C0
+    neff, neff_ref = float(kn[0, 3]), te10_kn(f_ghz) / k0
+    err = abs(neff / neff_ref - 1.0)
+    check(err <= 1e-7, f"boundarymode-3d: TE10 n_eff {neff:.10f} against "
+                       f"{neff_ref:.10f} ({err:.3e} > 1e-7)")
+    d28 = float("nan")
+    if neff28 is not None:  # None: run without phase 28 (a rehearsal)
+        d28 = abs(neff / neff28 - 1.0)
+        check(d28 <= 1e-8, f"boundarymode-3d: n_eff {neff:.10f} against "
+                           f"phase 28's {neff28:.10f} ({d28:.3e} > 1e-8)")
+
+    length, n_len, n_h, p = LINE_2D
+    nstep = int(round(TEM_MAX_T / TEM_DT)) + 1
+    tres, twall, _ = _gpu_run(write_plate_line_case(
+        os.path.join(workdir, "line2d"), *LINE_2D, problem="Transient",
+        time_step=TEM_DT, max_time=TEM_MAX_T, device="GPU", verbose=0),
+        "2d-transient")
+    route = _device_route("2d-transient", tres["provenance"])
+    V = _table(os.path.join(tres["post_dir"], "port-V.csv"))
+    check(V.shape[0] == nstep, f"2d-transient: {V.shape[0]} rows, expected "
+                               f"{nstep}")
+    t_ns, V1, V2 = V[:, 0], V[:, 2], V[:, 3]
+    ratio = float(np.abs(V2).max() / np.abs(V1).max())
+    transit = length * 1e-3 / C0 * 1e9
+    delay = _envelope_peak(t_ns, V2) - _envelope_peak(t_ns, V1)
+    check(abs(ratio - 1.0) <= 0.08 and abs(delay / transit - 1.0) <= 0.05,
+          f"2d-transient: peak |V2| / |V1| {ratio:.4f}, delay {delay:.5f} ns "
+          f"against L / c0 {transit:.5f} ns")
+    print(f"[29 boundarymode-3d] box_tet {BM_FACE[0]}x{BM_FACE[1]}x"
+          f"{BM_FACE[2]} guide, x = 0 face p={BM_FACE[3]}: "
+          f"{sub.num_elements} facets, TE10 n_eff {neff:.10f} (analytic "
+          f"{neff_ref:.10f}, {err:.3e}; phase 28's native section "
+          f"{d28:.3e}), run {wall:.2f} s, peak {peak / 2 ** 30:.3f} GiB; 2D "
+          f"transient line {length:g} mm, {n_len}x{n_h} p={p}: "
+          f"{tres['num_dofs']} dofs, {nstep} steps of {TEM_DT} ns; peak "
+          f"|V2| / |V1| {ratio:.4f}, envelope delay {delay:.5f} ns against "
+          f"L / c0 {transit:.5f} ns ({delay / transit - 1.0:+.3e}); "
+          f"estimator mass solves {route}; run {twall:.2f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return 0
+
+
 def _phases_waveport(workdir: str) -> dict:
-    """Phases 14-17, 21 and 26; returns their kernel launches by path."""
+    """Phases 14-16, 21 and 26; returns their kernel launches by path."""
     wp, S14 = phase_waveport(workdir)
     wpa = phase_waveport_adaptive(workdir, S14)
     bdr = phase_boundaries(workdir)
-    phase_waveport_parity(workdir)
     phase_eigen_parity2(workdir)
     cell = phase_floquet_cell(workdir)
     return dict(waveport=wp, waveport_adaptive=wpa, boundaries=bdr,
@@ -2713,8 +3048,9 @@ def _phases_waveport(workdir: str) -> dict:
 
 
 def _phases_static_eigen(workdir: str) -> dict:
-    """Phases 10-13, 18-20, 23 and 25; returns their kernel launches by
-    path."""
+    """Phases 10-13, 17-20, 23, 25, 28 and 29; returns their kernel
+    launches by path."""
+    phase_waveport_parity(workdir)
     mag = phase_magnetostatic(workdir)
     phase_magnetostatic_reference(workdir)
     es = phase_electrostatic(workdir)
@@ -2724,13 +3060,15 @@ def _phases_static_eigen(workdir: str) -> dict:
     amr = phase_amr(workdir)
     phase_transient_parity(workdir)
     drv = phase_floquet_driven(workdir)
+    bm3 = phase_boundarymode_3d(workdir, phase_boundarymode(workdir))
     return dict(magnetostatic=mag, electrostatic=es, eigen_damped=damped,
-                eigen_nonlinear=nonlinear, amr=amr, floquet_driven=drv)
+                eigen_nonlinear=nonlinear, amr=amr, floquet_driven=drv,
+                boundarymode=0, boundarymode_3d=bm3)
 
 
 #: The phase groups that run in processes of their own, by name.
-GROUPS = {"14-17,21,26": _phases_waveport,
-          "10-13,18-20,23,25": _phases_static_eigen}
+GROUPS = {"14-16,21,26": _phases_waveport,
+          "10-13,17-20,23,25,28,29": _phases_static_eigen}
 
 
 def _start_group(name: str, directory: str):
@@ -2818,6 +3156,8 @@ def main() -> int:
                 phase_adaptive_parity(workdir)
                 _check_groups(groups)
                 floquet_eigen = phase_floquet_eigen(workdir)
+                _check_groups(groups)
+                two_d = phase_2d(workdir)
                 other_paths = _join_groups(groups)
             finally:
                 for proc, _ in groups.values():
@@ -2827,7 +3167,7 @@ def main() -> int:
             for name in by_path:
                 by_path[name].update(transient=transient,
                                      floquet_eigen=floquet_eigen,
-                                     **other_paths)
+                                     two_d=two_d, **other_paths)
     except SmokeFailure as e:
         print(f"FAILED: {e}", flush=True)
         return 1

@@ -679,3 +679,322 @@ def write_floquet_cell_case(directory: str, n: int, order: int, *,
                    "Driven": {"Samples": [{"Type": "Point",
                                            "Freq": list(freqs)}]},
                    "Linear": {"Tol": 1e-10, "MaxIts": 400}}})
+
+
+# -- 2D meshes --------------------------------------------------------------
+
+
+def rect_mesh(nx: int, ny: int, lx: float, ly: float, *, quad: bool = False,
+              jitter: float = 0.0):
+    """A 2D mesh of the rectangle [0, lx] x [0, ly] in nx x ny cells, each
+    cut into two triangles (or kept as a quadrilateral with `quad`), with
+    domain attribute 1 and rim LINE elements of attribute 1 (y = 0), 2 (x =
+    lx), 3 (y = ly) and 4 (x = 0).  `jitter` > 0 moves the interior nodes by
+    up to that fraction of a cell, from a fixed seed."""
+    import numpy as np
+
+    from palace_torch.fem.reference import Geom
+    from palace_torch.mesh.mesh import ElemBucket, Mesh
+
+    xs, ys = np.meshgrid(np.linspace(0.0, lx, nx + 1),
+                         np.linspace(0.0, ly, ny + 1), indexing="ij")
+    nodes = np.stack([xs.ravel(), ys.ravel()], axis=1)
+    if jitter:
+        inner = ((nodes[:, 0] > 1e-9 * lx) & (nodes[:, 0] < (1 - 1e-9) * lx)
+                 & (nodes[:, 1] > 1e-9 * ly) & (nodes[:, 1] < (1 - 1e-9) * ly))
+        h = np.array([lx / nx, ly / ny])
+        nodes[inner] += jitter * h * np.random.default_rng(7).uniform(
+            -1, 1, (int(inner.sum()), 2))
+
+    def nid(i, j):
+        return i * (ny + 1) + j
+
+    cells = []
+    for i in range(nx):
+        for j in range(ny):
+            a, b, c, d = nid(i, j), nid(i + 1, j), nid(i + 1, j + 1), \
+                nid(i, j + 1)
+            cells += [[a, b, c, d]] if quad else [[a, b, c], [a, c, d]]
+    conn = np.array(cells, np.int32)
+    attr = np.ones(len(conn), np.int32)
+    edges, eattr = [], []
+    for i in range(nx):
+        edges += [[nid(i, 0), nid(i + 1, 0)], [nid(i, ny), nid(i + 1, ny)]]
+        eattr += [1, 3]
+    for j in range(ny):
+        edges += [[nid(nx, j), nid(nx, j + 1)], [nid(0, j), nid(0, j + 1)]]
+        eattr += [2, 4]
+    dom = (ElemBucket(3, Geom.QUAD, 1, conn, attr) if quad
+           else ElemBucket(2, Geom.TRI, 1, conn, attr))
+    return Mesh(nodes, [dom], [ElemBucket(1, Geom.LINE, 1,
+                                          np.array(edges, np.int32),
+                                          np.array(eattr, np.int32))], {})
+
+
+def _write_rect(directory: str, name: str, nx: int, ny: int, lx: float,
+                ly: float, **kw) -> None:
+    from palace_torch.mesh import gmsh_write
+
+    os.makedirs(directory, exist_ok=True)
+    gmsh_write.write(rect_mesh(nx, ny, lx, ly, **kw),
+                     os.path.join(directory, name))
+
+
+def rect_mode_freq(m: int, n: int, a: float = WR90_A, b: float = WR90_B,
+                   eps_r: float = 1.0) -> float:
+    """f (GHz) of the in-plane (m, n) mode of a PEC rectangle of sides a x b
+    (mm): f = c0 / (2 sqrt(eps_r)) sqrt((m / a)^2 + (n / b)^2)."""
+    return C0 / (2.0 * math.sqrt(eps_r)) * math.hypot(
+        m / (a * 1e-3), n / (b * 1e-3)) / 1e9
+
+
+def write_rect_eigen_case(directory: str, nx: int, ny: int, order: int, *,
+                          modes: int = 3, linear: str = "Default",
+                          device: str = "GPU", verbose: int = 1) -> str:
+    """Write rect.msh (`rect_mesh` of the WR-90 cross-section, 22.86 x 10.16
+    mm) and case.json of the 2D PEC-rectangle eigenproblem: vacuum, the
+    `modes` modes nearest 5 GHz at Tol 1e-9 with the `linear` solver;
+    returns the config path.  The analytic modes are `rect_mode_freq(m,
+    n)`: 6.557140 (1, 0), 13.114281 (2, 0), 14.753566 (0, 1) GHz."""
+    _write_rect(directory, "rect.msh", nx, ny, WR90_A, WR90_B)
+    return _write_config(directory, {
+        "Problem": {"Type": "Eigenmode", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "rect.msh", "L0": 1.0e-3},
+        "Domains": {"Materials": [{"Attributes": [1], "Permittivity": 1.0}],
+                    "Postprocessing": {"Energy": [{"Index": 1,
+                                                   "Attributes": [1]}]}},
+        "Boundaries": {"PEC": {"Attributes": [1, 2, 3, 4]}},
+        "Solver": {"Order": order, "Device": device,
+                   "Eigenmode": {"N": modes, "Target": 5.0, "Tol": 1e-9},
+                   "Linear": {"Type": linear, "Tol": 1e-10}}})
+
+
+#: The 2D plate line's plate separation (mm).
+PLATE_D = 2.0
+
+
+def plate_line_r(length: float) -> float:
+    """The lumped-port R (Ohm) that matches the 2D plate line of
+    `write_plate_line_case`: a 2D lumped port has length d = PLATE_D along
+    its direction and unit depth (models/lumpedport.py), in the
+    nondimensional units whose length scale Lc is the mesh's largest
+    extent, max(length, d) mm.  Its sheet impedance R w / l matches eta0
+    when R = eta0 d / Lc."""
+    return Z0 * PLATE_D / max(length, PLATE_D)
+
+
+def write_plate_line_case(directory: str, length: float, n_len: int,
+                          n_h: int, order: int, *, problem: str = "Driven",
+                          freqs=(4.0, 6.0, 8.0), adaptive: bool = False,
+                          tol: float = 1e-10, max_time: float = 0.3,
+                          time_step: float = 0.002, device: str = "GPU",
+                          verbose: int = 1) -> str:
+    """Write line.msh (`rect_mesh` n_len x n_h over length x PLATE_D mm) and
+    case.json of the 2D parallel-plate line: vacuum, PEC plates on y = 0
+    and y = PLATE_D (attributes 1 and 3), lumped ports (+Y) on x = 0
+    (attribute 4, excited) and x = length (attribute 2) of R =
+    `plate_line_r`, the matched load; returns the config path.  A Driven
+    case sweeps the points `freqs` (GHz; with `adaptive`, AdaptiveTol 1e-6
+    over 2-10 GHz in 0.1 GHz steps) with GMG at `tol`; a Transient case
+    runs GeneralizedAlpha on the 30 GHz ModulatedGaussian pulse of width
+    0.02 ns of `write_tem_line_case`.  The TEM wave crosses the matched
+    line unreflected: |S11| -> 0, |S21| -> 1, arg S21 -> -k0 length, and a
+    pulse arrives after length / c0."""
+    _write_rect(directory, "line.msh", n_len, n_h, length, PLATE_D)
+    r = plate_line_r(length)
+    bdr = {"PEC": {"Attributes": [1, 3]},
+           "LumpedPort": [
+               {"Index": 1, "Attributes": [4], "R": r, "Direction": "+Y",
+                "Excitation": True},
+               {"Index": 2, "Attributes": [2], "R": r, "Direction": "+Y"}]}
+    solver = {"Order": order, "Device": device,
+              "Linear": {"Type": "GMG", "Tol": tol, "MaxIts": 400}}
+    if problem == "Driven":
+        solver["Driven"] = (
+            {"MinFreq": 2.0, "MaxFreq": 10.0, "FreqStep": 0.1,
+             "AdaptiveTol": 1e-6, "AdaptiveMemory": 2} if adaptive else
+            {"Samples": [{"Type": "Point", "Freq": list(freqs)}]})
+    elif problem == "Transient":
+        solver["Transient"] = {
+            "Type": "GeneralizedAlpha", "Excitation": "ModulatedGaussian",
+            "ExcitationFreq": 30.0, "ExcitationWidth": 0.02,
+            "MaxTime": max_time, "TimeStep": time_step}
+    else:
+        raise ValueError(f"plate line case: unknown problem {problem!r}")
+    return _write_config(directory, {
+        "Problem": {"Type": problem, "Verbose": verbose, "Output": "postpro"},
+        "Model": {"Mesh": "line.msh", "L0": 1.0e-3},
+        "Domains": {"Materials": [{"Attributes": [1], "Permittivity": 1.0}],
+                    "Postprocessing": {"Energy": [{"Index": 1,
+                                                   "Attributes": [1]}]}},
+        "Boundaries": bdr,
+        "Solver": solver})
+
+
+def write_rect_magnetostatic_case(directory: str, nx: int, ny: int,
+                                  order: int, *, device: str = "GPU",
+                                  verbose: int = 1) -> str:
+    """Write rect.msh (`rect_mesh` of the WR-90 cross-section) and
+    case.json of a 2D magnetostatic run: PEC on x = a, y = b and x = 0
+    (attributes 2, 3 and 4: one connected piece of the rim) and a unit +X
+    surface current on y = 0 (attribute 1); returns the config path.  The
+    current's ends lie on the PEC, so its right-hand side is orthogonal to
+    every curl-free field the eliminated curl-curl operator keeps (the
+    gradients of H1 functions that vanish on the PEC), and CG converges.
+    With the PEC in two pieces (x = 0 and x = a only) one more curl-free
+    field (the gradient of a function 0 on one piece and 1 on the other)
+    meets the current, and CG diverges in both packages."""
+    _write_rect(directory, "rect.msh", nx, ny, WR90_A, WR90_B)
+    return _write_config(directory, {
+        "Problem": {"Type": "Magnetostatic", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "rect.msh", "L0": 1.0e-3},
+        "Domains": {"Materials": [{"Attributes": [1],
+                                   "Permeability": 1.0}]},
+        "Boundaries": {"PEC": {"Attributes": [2, 3, 4]},
+                       "SurfaceCurrent": [{"Index": 1, "Attributes": [1],
+                                           "Direction": "+X"}]},
+        "Solver": {"Order": order, "Device": device,
+                   "Magnetostatic": {"Save": 0},
+                   "Linear": {"Tol": 1e-10, "MaxIts": 2000}}})
+
+
+#: The BoundaryMode decks' frequency (GHz): TE10 propagates in the WR-90
+#: cross-section, TE20 (13.1 GHz) does not.
+MODE_FREQ = 10.0
+
+
+def te10_kn(f_ghz: float, a: float = WR90_A, eps_r: float = 1.0) -> float:
+    """kn (1/m) of the TE10 mode of a PEC guide of width a (mm) filled with
+    eps_r at f (GHz): kn = sqrt(eps_r k0^2 - (pi / a)^2)."""
+    k0 = 2.0 * math.pi * f_ghz * 1e9 / C0
+    return math.sqrt(eps_r * k0 * k0 - (math.pi / (a * 1e-3)) ** 2)
+
+
+def write_boundarymode_case(directory: str, nx: int, ny: int, order: int, *,
+                            modes: int = 2, quad: bool = False,
+                            loss_tan: float = 0.0, eps_r: float = 1.0,
+                            sheet_ls: float = 0.0, absorbing: bool = False,
+                            dielectric: bool = False,
+                            device: str = "GPU", verbose: int = 1) -> str:
+    """Write rect.msh (`rect_mesh` of the WR-90 cross-section, 22.86 x 10.16
+    mm) and case.json of the BoundaryMode run at MODE_FREQ: the `modes`
+    modes of largest Re kn of a PEC guide filled with eps_r (and tan delta
+    `loss_tan`), a Voltage and an Impedance path across the middle; returns
+    the config path.  With `sheet_ls` > 0 the y = b wall (attribute 3) is
+    an Impedance sheet of that Ls (H/sq); with `absorbing` the x = a wall
+    (attribute 2) is a first-order Absorbing boundary; with `dielectric` a
+    1 um interface layer (eps_r 10, tan delta 1e-3) lines the y = 0 wall
+    (surface-Q.csv).  The PEC guide's TE10 has kn = `te10_kn(MODE_FREQ)`
+    (1/m)."""
+    _write_rect(directory, "rect.msh", nx, ny, WR90_A, WR90_B, quad=quad)
+    pec = [1, 2, 3, 4]
+    bdr = {}
+    if sheet_ls > 0:
+        pec.remove(3)
+        bdr["Impedance"] = [{"Attributes": [3], "Ls": sheet_ls}]
+    if absorbing:
+        pec.remove(2)
+        bdr["Absorbing"] = {"Attributes": [2], "Order": 1}
+    bdr["PEC"] = {"Attributes": pec}
+    path = [[WR90_A / 2, 0.0], [WR90_A / 2, WR90_B]]
+    post = {"Voltage": [{"Index": 1, "VoltagePath": path, "NSamples": 41}],
+            "Impedance": [{"Index": 1, "VoltagePath": path,
+                           "NSamples": 41}]}
+    if dielectric:
+        post["Dielectric"] = [{"Index": 1, "Attributes": [1],
+                               "Thickness": 1e-3, "Permittivity": 10.0,
+                               "LossTan": 1e-3}]
+    bdr["Postprocessing"] = post
+    return _write_config(directory, {
+        "Problem": {"Type": "BoundaryMode", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "rect.msh", "L0": 1.0e-3},
+        "Domains": {"Materials": [{"Attributes": [1], "Permittivity": eps_r,
+                                   "LossTan": loss_tan}],
+                    "Postprocessing": {"Energy": [{"Index": 1,
+                                                   "Attributes": [1]}]}},
+        "Boundaries": bdr,
+        "Solver": {"Order": order, "Device": device,
+                   "BoundaryMode": {"Freq": MODE_FREQ, "N": modes}}})
+
+
+#: The TEM cross-section of `write_tem_section_case`: width and plate
+#: separation (mm) and eps_r.
+TEM_W, TEM_D, TEM_EPS = 10.0, 2.0, 2.25
+
+
+def tem_section_z() -> float:
+    """Z_PV (Ohm) of the TEM mode of the parallel-plate cross-section of
+    `write_tem_section_case`: eta0 d / (w sqrt(eps_r))."""
+    return Z0 * TEM_D / (TEM_W * math.sqrt(TEM_EPS))
+
+
+def write_tem_section_case(directory: str, nx: int, ny: int, order: int, *,
+                           device: str = "GPU", verbose: int = 1) -> str:
+    """Write plate.msh (`rect_mesh` nx x ny over TEM_W x TEM_D mm) and
+    case.json of the BoundaryMode run on a parallel-plate cross-section:
+    PEC plates on y = 0 and y = TEM_D (attributes 1 and 3), natural
+    (magnetic-wall) sides, one dielectric TEM_EPS, the mode nearest n_eff =
+    sqrt(TEM_EPS) at 5 GHz, a Voltage and an Impedance path from plate to
+    plate; returns the config path.  Its TEM mode has n_eff =
+    sqrt(TEM_EPS) and Z_PV = `tem_section_z()`.  The constant field lies
+    in the ND space, so both hold to the solver's tolerance on any mesh."""
+    _write_rect(directory, "plate.msh", nx, ny, TEM_W, TEM_D)
+    path = [[TEM_W / 2, 0.0], [TEM_W / 2, TEM_D]]
+    return _write_config(directory, {
+        "Problem": {"Type": "BoundaryMode", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "plate.msh", "L0": 1.0e-3},
+        "Domains": {"Materials": [{"Attributes": [1],
+                                   "Permittivity": TEM_EPS}]},
+        "Boundaries": {
+            "PEC": {"Attributes": [1, 3]},
+            "Postprocessing": {
+                "Voltage": [{"Index": 1, "VoltagePath": path,
+                             "NSamples": 21}],
+                "Impedance": [{"Index": 1, "VoltagePath": path,
+                               "NSamples": 21}]}},
+        "Solver": {"Order": order, "Device": device,
+                   "BoundaryMode": {"Freq": 5.0, "N": 1,
+                                    "Target": math.sqrt(TEM_EPS)}}})
+
+
+def write_port_face_mode_case(directory: str, n_len: int, n_a: int, n_b: int,
+                              order: int, *, eps=None, device: str = "GPU",
+                              verbose: int = 1) -> str:
+    """Write guide.msh (box_tet n_len x n_a x n_b over the WR-90 guide of
+    `write_waveguide_case`, 60 x 22.86 x 10.16 mm) and case.json of the
+    BoundaryMode run on its port face x = 0 (Solver/BoundaryMode/
+    Attributes [1]): PEC side walls, wave ports on both ends (the far one
+    plays no part in the mode solve), the first mode at MODE_FREQ; returns
+    the config path.  `eps` = (exx, eyy, ezz) makes the filling an
+    anisotropic dielectric (MaterialAxes the global axes).  The face is the
+    guide's y-z cross-section, so its TE10 (E along z) has kn =
+    `te10_kn(MODE_FREQ, eps_r=ezz)` (1/m); the face's normal is x, so only
+    a rotation into the face's frame takes exx out of the in-plane
+    block."""
+    from palace_torch.mesh import gmsh_write
+    from palace_torch.mesh.generate import box_tet
+
+    os.makedirs(directory, exist_ok=True)
+    gmsh_write.write(box_tet(n_len, n_a, n_b, lx=WAVEGUIDE_L, ly=WR90_A,
+                             lz=WR90_B), os.path.join(directory, "guide.msh"))
+    mat = {"Attributes": [1], "Permeability": 1.0, "Permittivity": 1.0}
+    if eps is not None:
+        mat.update(Permittivity=list(eps),
+                   MaterialAxes=[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                                 [0.0, 0.0, 1.0]])
+    return _write_config(directory, {
+        "Problem": {"Type": "BoundaryMode", "Verbose": verbose,
+                    "Output": "postpro"},
+        "Model": {"Mesh": "guide.msh", "L0": 1.0e-3},
+        "Domains": {"Materials": [mat]},
+        "Boundaries": {
+            "PEC": {"Attributes": [3, 4, 5, 6]},
+            "WavePort": [{"Index": 1, "Attributes": [1]},
+                         {"Index": 2, "Attributes": [2]}]},
+        "Solver": {"Order": order, "Device": device,
+                   "BoundaryMode": {"Freq": MODE_FREQ, "N": 1,
+                                    "Attributes": [1]}}})

@@ -1,10 +1,10 @@
 """Problem drivers of the port (driven sweep, eigenmode, electrostatic,
-magnetostatic and transient)."""
+magnetostatic, transient and boundary mode)."""
 
 from __future__ import annotations
 
 #: ROADMAP.md port-queue item of each problem type not ported yet.
-_QUEUE = {"BoundaryMode": "2D meshes"}
+_QUEUE = {}
 
 
 def get_driver(problem_type):
@@ -25,6 +25,9 @@ def get_driver(problem_type):
         return solve
     if problem_type is ProblemType.TRANSIENT:
         from palace_torch.drivers.transient import solve
+        return solve
+    if problem_type is ProblemType.BOUNDARY_MODE:
+        from palace_torch.drivers.boundarymode import solve
         return solve
     unported(f"The {problem_type.value} driver",
              _QUEUE.get(problem_type.value, "Modules to port"))

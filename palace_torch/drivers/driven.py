@@ -131,13 +131,16 @@ def measure_step(sop: SpaceOperator, E: np.ndarray, omega: float,
     """Measure ports, energies, probes for one solution vector."""
     m = StepMeasurement(omega=omega)
     # E_elec = 1/2 Re E^H M E, E_mag = 1/(2 w^2) Re E^H K E (domain parts,
-    # K with the Floquet terms).
+    # K with the Floquet terms).  On a 2D mesh E_mag is 0, as in palace_tpu
+    # (the reference's B there is ~0; KNOWN_GAPS.md "2D E_mag").
+    is_2d = sop.mesh.nodes.shape[1] == 2
     m.E_elec = 0.5 * _energy(sop.M_re, E)
-    m.E_mag = 0.5 * (_energy(sop.K_dom, E)
-                     + sop.floquet_mag_quad(E, omega)) / (omega * omega)
+    m.E_mag = 0.0 if is_2d else 0.5 * (
+        _energy(sop.K_dom, E) + sop.floquet_mag_quad(E, omega)) / (
+            omega * omega)
     for ecfg in sop.iodata.domains.energies:
         m.domain_E[ecfg.index] = 0.5 * _energy(sop.M_re, E, ecfg.attributes)
-        m.domain_M[ecfg.index] = 0.5 * (
+        m.domain_M[ecfg.index] = 0.0 if is_2d else 0.5 * (
             _energy(sop.K_dom, E, ecfg.attributes)
             + sop.floquet_mag_quad(E, omega, ecfg.attributes)) / omega ** 2
 
@@ -338,15 +341,18 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
         with timers.block("  Paraview"):
             write_paraview_fields(iodata, sop, post_dir, freqs_ghz, omegas,
                                   excitations, sols)
-        # Combined grad + curl flux indicators with B = -curl E/(i w).
+        # Combined grad + curl flux indicators with B = -curl E/(i w); on a
+        # 2D mesh the grad flux alone, as in palace_tpu (the reference's B
+        # there is ~0, so its curl part is noise).
         eta2_steps, energies = [], []
         for (ex, i), E in sols.items():
             fk = sop.floquet_k
             if fk is not None and sop.floquet_omega_ref > 0:
                 fk = fk * omegas[i]
-            e2 = curl_flux_indicators(sop.space, sop.materials, E,
-                                      floquet_k=fk,
-                                      device=device) / omegas[i] ** 2
+            e2 = (np.zeros(mesh.num_elements) if mesh.nodes.shape[1] == 2
+                  else curl_flux_indicators(sop.space, sop.materials, E,
+                                            floquet_k=fk, device=device)
+                  / omegas[i] ** 2)
             try:
                 e2 = e2 + grad_flux_indicators(sop.space, sop.materials, E,
                                                device=device)
@@ -607,7 +613,7 @@ def build_surface_traces(iodata: IoData, sop: SpaceOperator):
 def build_farfield(iodata: IoData, sop: SpaceOperator):
     """(trace basis, (theta, phi) grid) for far-field postprocessing."""
     ff = iodata.boundaries.farfield
-    if ff is None or not ff.attributes:
+    if ff is None or not ff.attributes or sop.mesh.nodes.shape[1] != 3:
         return None, None
     from palace_torch.fem.evaluation import boundary_trace
     from palace_torch.fem.nd_boundary import nd_trace_basis

@@ -407,6 +407,7 @@ def solve(iodata: IoData, output_dir: str | None = None,
             curl_flux_indicators, grad_flux_indicators)
 
         eta2, energies = [], []
+        is_2d = space.mesh.nodes.shape[1] == 2
         with timers.block("Postprocessing"):
             for i in range(len(omega)):
                 x = vecs[:, i]
@@ -415,10 +416,12 @@ def solve(iodata: IoData, output_dir: str | None = None,
                 vecs[:, i] = x
                 # Combined grad + curl flux indicators with B = -i/omega
                 # curl E (reference: eigensolver.cpp:339-343), Et the mode's
-                # total energy.
-                e2 = curl_flux_indicators(
-                    space, sop.materials, x, floquet_k=sop.floquet_k,
-                    device=device) / abs(omega[i]) ** 2
+                # total energy.  On a 2D mesh the grad part alone and E_mag
+                # 0, as in palace_tpu (the reference's 2D B is ~0).
+                e2 = (np.zeros(space.mesh.num_elements) if is_2d else
+                      curl_flux_indicators(
+                          space, sop.materials, x, floquet_k=sop.floquet_k,
+                          device=device) / abs(omega[i]) ** 2)
                 try:
                     e2 = e2 + grad_flux_indicators(space, sop.materials, x,
                                                    device=device)
@@ -426,8 +429,9 @@ def solve(iodata: IoData, output_dir: str | None = None,
                     pass  # RT on hex/prism meshes: curl-only indicators
                 eta2.append(e2)
                 E_elec = 0.5 * _quad(sop.M_re, x)
-                E_mag = 0.5 * (_quad(sop.K_dom, x) + sop.floquet_mag_quad(
-                    x, abs(omega[i]))) / abs(omega[i]) ** 2
+                E_mag = 0.0 if is_2d else 0.5 * (
+                    _quad(sop.K_dom, x) + sop.floquet_mag_quad(
+                        x, abs(omega[i]))) / abs(omega[i]) ** 2
                 E_cap = E_ind = 0.0
                 for idx, port in sop.ports.items():
                     s, v = sop.port_functionals(idx)
@@ -524,10 +528,13 @@ def _write_domain_energy(iodata, sop, post_dir, omega, modes):
         td.add(Column(f"pe{ecfg.index}", f"p_elec[{ecfg.index}]"))
         td.add(Column(f"Em{ecfg.index}", f"E_mag[{ecfg.index}] (J)"))
         td.add(Column(f"pm{ecfg.index}", f"p_mag[{ecfg.index}]"))
+    # 2D: E_mag 0, palace_tpu's convention (its committed 2D references
+    # have E_mag ~ 1e-16; KNOWN_GAPS.md "2D E_mag"), and p_mag 1.
+    is_2d = sop.mesh.nodes.shape[1] == 2
     for i in range(len(omega)):
         x = modes[i]
         Ee = 0.5 * _quad(sop.M_re, x)
-        Em = 0.5 * (_quad(sop.K_dom, x) + sop.floquet_mag_quad(
+        Em = 0.0 if is_2d else 0.5 * (_quad(sop.K_dom, x) + sop.floquet_mag_quad(
             x, abs(omega[i]))) / abs(omega[i]) ** 2
         Ec = Ei = 0.0
         for idx, port in sop.ports.items():
@@ -545,14 +552,15 @@ def _write_domain_energy(iodata, sop, post_dir, omega, modes):
         td.col("Ei").data.append(Ei * Escale)
         for ecfg in iodata.domains.energies:
             EeA = 0.5 * _masked_quad(sop.M_re, x, ecfg.attributes)
-            EmA = 0.5 * (_masked_quad(sop.K_dom, x, ecfg.attributes)
-                         + sop.floquet_mag_quad(x, abs(omega[i]),
-                                                ecfg.attributes)
-                         ) / abs(omega[i]) ** 2
+            EmA = 0.0 if is_2d else 0.5 * (
+                _masked_quad(sop.K_dom, x, ecfg.attributes)
+                + sop.floquet_mag_quad(x, abs(omega[i]), ecfg.attributes)
+            ) / abs(omega[i]) ** 2
             td.col(f"Ee{ecfg.index}").data.append(EeA * Escale)
             td.col(f"pe{ecfg.index}").data.append(EeA / Ee if Ee > 0 else 0.0)
             td.col(f"Em{ecfg.index}").data.append(EmA * Escale)
-            td.col(f"pm{ecfg.index}").data.append(EmA / Em if Em > 0 else 0.0)
+            td.col(f"pm{ecfg.index}").data.append(
+                EmA / Em if Em > 0 else (1.0 if is_2d else 0.0))
     td.write(os.path.join(post_dir, "domain-E.csv"))
 
 

@@ -460,12 +460,14 @@ def solve(iodata: IoData, output_dir: str | None = None,
         rows.append(row)
         c2 = time.perf_counter()
         # Per-step combined grad + curl flux indicators (reference:
-        # transientsolver.cpp:108 AddEstimate(E, B, Et) every step).
+        # transientsolver.cpp:108 AddEstimate(E, B, Et) every step); on a
+        # 2D mesh the grad part alone, as in palace_tpu.
         with timers.block("Estimator solve"):
             e2 = grad_flux_indicators(sop.space, sop.materials, x[1],
                                       device=device)
-            e2 = e2 + curl_flux_indicators(sop.space, sop.materials, x[2],
-                                           device=device)
+            if mesh.nodes.shape[1] == 3:
+                e2 = e2 + curl_flux_indicators(sop.space, sop.materials,
+                                               x[2], device=device)
         eta2_steps.append(e2)
         energies.append(row["E_elec"] + row["E_mag"] + row["E_cap"]
                         + row["E_ind"])
@@ -514,6 +516,10 @@ def measure_transient(iodata, sop: SpaceOperator, op: TransientOperator, x, t,
         parts += [_masked(eE, masks[ecfg.index]),
                   _masked(eM, masks[ecfg.index])]
     vals = torch.stack(parts).cpu().numpy()
+    if sop.mesh.nodes.shape[1] == 2:
+        # 2D: E_mag 0, palace_tpu's convention (the reference's 2D B is ~0;
+        # KNOWN_GAPS.md "2D E_mag").
+        vals[1::2] = 0.0
     m["E_elec"] = 0.5 * float(vals[0])
     m["E_mag"] = 0.5 * float(vals[1])
     m["E_cap"] = 0.0
@@ -571,8 +577,13 @@ def _port_power_transient(sop: SpaceOperator, idx: int, E, aB) -> float:
         muinv = sop.materials.attr_tensor(sop.materials.inv_permeability, attrs)
         Ev = trace_nd(sop.space, E, tr, which="value")
         Bv = -trace_nd(sop.space, aB, tr, which="curl")
-        H = np.einsum("fst,fqt->fqs", muinv, Bv)
-        ExH = np.cross(Ev, H)
+        if sop.mesh.nodes.shape[1] == 2:
+            # 2D: H = (mu^-1)_zz B_z out of plane; E x H = (Ey H, -Ex H).
+            H = muinv[:, 2, 2][:, None] * Bv[..., 0]
+            ExH = np.stack([Ev[..., 1] * H, -Ev[..., 0] * H], axis=-1)
+        else:
+            H = np.einsum("fst,fqt->fqs", muinv, Bv)
+            ExH = np.cross(Ev, H)
         P += float(np.einsum("fq,fqs,fqs->", tr.wdetJ, ExH, -tr.normal))
     return P
 

@@ -1,6 +1,6 @@
 """Flux-recovery error estimation for H(curl) fields (counterpart of
 palace_tpu/fem/estimators.py: `_solver`, `grad_flux_indicators`,
-`curl_flux_indicators`, 3D).
+`curl_flux_indicators`, in 3D and on 2D meshes).
 
 The discontinuous fluxes (eps E onto RT_{p-1}, mu^-1 curl E onto ND_p) are
 L2-projected with a Jacobi-CG mass solve on the operator's device; the
@@ -19,7 +19,7 @@ from palace_torch.fem.operators import default_qorder
 from palace_torch.linalg.iterative import cg
 from palace_torch.linalg.smoothers import jacobi
 from palace_torch.mesh import geometry as geom_mod
-from palace_torch.utils import provenance, unported
+from palace_torch.utils import provenance
 
 
 def count_mass_route(route: str):
@@ -197,9 +197,11 @@ def curl_flux_indicators(space: NDSpace, materials, E: np.ndarray,
                          floquet_k: np.ndarray | None = None,
                          device: torch.device = torch.device("cpu")
                          ) -> np.ndarray:
-    """Squared, un-normalized per-element curl-flux indicators for a 3D ND
+    """Squared, un-normalized per-element curl-flux indicators for an ND
     field E (complex supported): F = mu^-1 curl E projected onto ND_p,
-    eta_K^2 = int_K (curl E - mu F)^T mu^-1 (curl E - mu F).
+    eta_K^2 = int_K (curl E - mu F)^T mu^-1 (curl E - mu F).  On a 2D mesh
+    the curl is the out-of-plane scalar and F its projection onto scalar
+    H1 (`_curl_flux_2d`).
 
     floquet_k: Bloch wave vector; the estimated flux is then that of the
     physical i omega B = curl E - i k x E, with k x E fed in as its L2
@@ -207,8 +209,8 @@ def curl_flux_indicators(space: NDSpace, materials, E: np.ndarray,
     (reference: eigensolver.cpp:433-439, linalg/floquetcorrection.cpp:
     26-80)."""
     mesh = space.mesh
-    if mesh.nodes.shape[1] != 3:
-        unported("2D indicators", "2D meshes")
+    if mesh.nodes.shape[1] == 2:
+        return _curl_flux_2d(space, materials, np.asarray(E), device)
     signs_list = getattr(space, "elem_signs", [None] * len(mesh.buckets))
     E = np.asarray(E)
     cplx = np.iscomplexobj(E)
@@ -268,4 +270,58 @@ def curl_flux_indicators(space: NDSpace, materials, E: np.ndarray,
         eta2[ofs:ofs + b.num_elem] = np.real(
             np.einsum("eqs,eqs,eq->e", np.conj(diff), mid, gf.wdetJ))
         ofs += b.num_elem
+    return eta2
+
+
+def _curl_flux_2d(space: NDSpace, materials, E: np.ndarray,
+                  device: torch.device) -> np.ndarray:
+    """The 2D branch of `curl_flux_indicators`: the out-of-plane flux
+    mu^-1_zz curl E projected onto scalar H1 of the same order (Jacobi-CG
+    mass solve on `device`), eta_K^2 = int_K mu^-1_zz |curl E - mu_zz F|^2.
+    Geometry, bases and the mass solver are cached on the space."""
+    mesh = space.mesh
+    signs_list = getattr(space, "elem_signs", [None] * len(mesh.buckets))
+    cplx = np.iscomplexobj(E)
+    cache = getattr(space, "_torch_curlflux2d_cache", None)
+    if cache is None:
+        from palace_torch.fem.h1 import H1Space
+        from palace_torch.fem.operators import h1_operator
+
+        h1 = H1Space(mesh, space.order)
+        per_elem = []
+        for b in mesh.buckets:
+            q = default_qorder(space.order, b.geo_order, b.geom)
+            gf = geom_mod.compute(mesh.nodes, b, q)
+            _, C = space.basis_tables(b.geom, gf.qpts)
+            muinv_zz = materials.attr_tensor(materials.inv_permeability,
+                                             b.attr)[:, 2, 2]
+            per_elem.append((gf, C[..., 0], muinv_zz,
+                             h1.basis(b.geom).eval(gf.qpts)))
+        Mh = h1_operator(h1, mass_coef={int(a): np.eye(3)
+                                        for a in mesh.attributes()},
+                         device=device)
+        cache = space._torch_curlflux2d_cache = (h1, per_elem, _solver(Mh))
+    h1, per_elem, hsolve = cache
+
+    curls = []
+    bh = np.zeros(h1.num_dofs, np.complex128 if cplx else np.float64)
+    for bi, (gf, C0, muinv_zz, B) in enumerate(per_elem):
+        ue = E[space.elem_dofs[bi]]
+        if signs_list[bi] is not None:
+            ue = ue * signs_list[bi]
+        curl = np.einsum("qn,en->eq", C0, ue) / gf.detJ
+        curls.append(curl)
+        c = np.einsum("qn,eq->en", B, curl * muinv_zz[:, None] * gf.wdetJ)
+        np.add.at(bh, h1.elem_dofs[bi].ravel(), c.ravel())
+    w = hsolve(bh.real) + (1j * hsolve(bh.imag) if cplx else 0.0)
+
+    eta2 = np.zeros(sum(b.num_elem for b in mesh.buckets))
+    ofs = 0
+    for bi, ((gf, C0, muinv_zz, B), curl) in enumerate(zip(per_elem, curls)):
+        n = curl.shape[0]
+        wq = np.einsum("qn,en->eq", B, w[h1.elem_dofs[bi]])
+        diff = curl - wq / muinv_zz[:, None]
+        eta2[ofs:ofs + n] = np.einsum("eq,e,eq->e", np.abs(diff) ** 2,
+                                      muinv_zz, gf.wdetJ)
+        ofs += n
     return eta2

@@ -44,7 +44,6 @@ from palace_torch.models.materials import MaterialOperator
 from palace_torch.ops.partial import (
     BucketTables, PAOperator, signed_tables, tables_csr,
 )
-from palace_torch.utils import unported
 
 
 def _matsqrt(A: np.ndarray) -> np.ndarray:
@@ -76,8 +75,6 @@ class SpaceOperator:
     def __init__(self, iodata: IoData, mesh: Mesh,
                  device: torch.device = torch.device("cpu")):
         b = iodata.boundaries
-        if mesh.nodes.shape[1] != 3:
-            unported("2D meshes", "2D meshes")
         canonicalize_simplices(mesh)
         self.iodata = iodata
         self.mesh = mesh
@@ -217,6 +214,10 @@ class SpaceOperator:
         kF_cfg = self.iodata.boundaries.floquet_wave_vector
         if kF_cfg is None or not np.linalg.norm(kF_cfg) > 0:
             return
+        if self.mesh.nodes.shape[1] != 3:
+            raise NotImplementedError(
+                "Floquet wave vector requires a 3D mesh (reference: "
+                "materialoperator.cpp:390-392)")
         from palace_torch.config import ProblemType
         from palace_torch.fem.nd_operators import nd_cross_operator
 
@@ -342,13 +343,20 @@ class SpaceOperator:
         ab = iod.boundaries.absorbing
         self._abc2_tb = None
         if ab is not None and ab.attributes:
+            if ab.order > 1 and mesh.nodes.shape[1] != 3:
+                # palace_tpu fails here in a matmul of its 3D curl trace.
+                raise NotImplementedError(
+                    "second-order Absorbing boundaries require a 3D mesh "
+                    "(the boundary curl term has no 2D form)")
             tr = boundary_trace(mesh, ab.attributes, self.bdr_qorder)
             tb = nd_trace_basis(self.space, tr, with_curl=ab.order > 1)
             if ab.order > 1:
                 self._abc2_tb = tb
-            # invz0 = sqrt(mu^-1 eps) of the adjacent material.
+            # invz0 = sqrt(mu^-1 eps) of the adjacent material, its
+            # in-plane block on a 2D mesh.
+            sdim = mesh.nodes.shape[1]
             invz = {a: _matsqrt(self.materials.inv_permeability[a]
-                                @ self.materials.permittivity[a])
+                                @ self.materials.permittivity[a])[:sdim, :sdim]
                     for a in self.materials.permittivity}
             coef = self.materials.attr_tensor(invz, self._trace_attrs(tr))
             self.C_bdr.append(boundary_mass_bucket(tb, coef))
@@ -766,7 +774,13 @@ class SpaceOperator:
                                            self._trace_attrs(tr))
         Ev = trace_nd(self.space, E, tr, which="value")  # (n, nq, sdim)
         Bv = trace_nd(self.space, E, tr, which="curl") * (-1.0 / (1j * omega))
-        H = np.einsum("fst,fqt->fqs", muinv, Bv)
-        ExH = np.cross(Ev, np.conj(H))
+        if self.mesh.nodes.shape[1] == 2:
+            # 2D: H = (mu^-1)_zz B_z out of plane; E x H = (Ey H, -Ex H).
+            H = muinv[:, 2, 2][:, None] * Bv[..., 0]
+            ExH = np.stack([Ev[..., 1] * np.conj(H),
+                            -Ev[..., 0] * np.conj(H)], axis=-1)
+        else:
+            H = np.einsum("fst,fqt->fqs", muinv, Bv)
+            ExH = np.cross(Ev, np.conj(H))
         # Trace normals point out of the domain; propagation is inward.
         return complex(np.einsum("fq,fqs,fqs->", tr.wdetJ, ExH, -tr.normal))

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from palace_torch.fem.reference import Geom
 from palace_torch.ops.structured_kernel import (
     _class_tables, from_flat, structured_apply_flat, structured_apply_flat_v2,
     structured_apply_lattice, to_flat,
@@ -244,7 +245,8 @@ class StructuredTermApply:
         element table on a single-hex-bucket box grid that is not periodic.
         A periodic mesh is refused outright: the zero-padded lattice stencil
         drops the couplings across the wrap and cannot carry a Bloch
-        phase."""
+        phase.  So is a 2D mesh, or a bucket of another geometry, before
+        the lattice probe indexes three centroid axes."""
         if layout not in LAYOUTS:
             raise ValueError(f"unknown lattice layout {layout!r}")
         if space.mesh.node_ident is not None:
@@ -253,6 +255,9 @@ class StructuredTermApply:
                 "drops the wrap couplings and cannot carry a Bloch phase)")
         if len(space.mesh.buckets) != 1:
             raise ValueError("structured: single-bucket mesh required")
+        if space.mesh.nodes.shape[1] != 3 or \
+                space.mesh.buckets[0].geom is not Geom.HEX:
+            raise ValueError("structured: a 3D hexahedral mesh is required")
         gd = np.asarray(space.elem_dofs[0])
         ops = []
         for t in terms:

@@ -12,7 +12,11 @@ driver's host factorizations (scipy splu of M and of A = M + dt^2 K, and
 one solve) on the TEM line of `palace_torch.cases.write_tem_line_case`;
 `--line LENGTH N_LEN N_CROSS MAX_TIME` runs phase 22 on another line
 (mm, box_tet cells along and across, ns), to read its oracles at another
-depth than the chip's.  `--card` leaves the GPU in place and runs the
+depth than the chip's; `--set NAME=V1,V2,...` (repeatable, first on the
+command line) sets a chip_smoke constant to the tuple of those numbers, or
+to one number, to read a phase's gates at another depth before cutting
+it (e.g. `--set FLOQUET_BOX=6,3 --set FLOQUET_BOX_DOFS=25506`, phase
+24 before its cut).  `--card` leaves the GPU in place and runs the
 named phases alone on the card (after the card line), on
 chip_smoke.THREADS threads as in the smoke run's processes: their times
 are then those of the phases alone on the GPU.
@@ -22,6 +26,8 @@ Run from the repository root:
     python scripts/rehearse_smoke_cpu.py --factor 40 24 8
     python scripts/rehearse_smoke_cpu.py --line 40 24 8 0.4 phase_transient
     python3 scripts/rehearse_smoke_cpu.py --card phase_floquet_eigen
+    python scripts/rehearse_smoke_cpu.py phase_2d phase_boundarymode \
+        phase_boundarymode_3d
 Torch runs on RT threads (default 4) without `--card`."""
 
 from __future__ import annotations
@@ -88,6 +94,13 @@ def main(argv) -> int:
         return 0
     import chip_smoke
 
+    while argv[:1] == ["--set"]:
+        name, _, vals = argv[1].partition("=")
+        nums = tuple(float(v) if "." in v else int(v)
+                     for v in vals.split(","))
+        old = getattr(chip_smoke, name)  # an existing constant only
+        setattr(chip_smoke, name, nums if isinstance(old, tuple) else nums[0])
+        argv = argv[2:]
     if argv[:1] == ["--card"]:
         print(chip_smoke.phase_card(), flush=True)
         torch.set_num_threads(chip_smoke.THREADS)
@@ -112,14 +125,22 @@ def main(argv) -> int:
     return run_phases(chip_smoke, argv, "CPU")
 
 
+#: Phases that take an earlier phase's result, as the smoke run passes it:
+#: phase 29 holds its port face's TE10 against phase 28's.
+CHAINED = {"phase_boundarymode_3d": "phase_boundarymode"}
+
+
 def run_phases(chip_smoke, names, where: str) -> int:
     """Run the named chip_smoke phases in one work directory; print each
     one's wall time and their total."""
     t_all = time.perf_counter()
+    results = {}
     with tempfile.TemporaryDirectory() as workdir:
         for name in names:
             t0 = time.perf_counter()
-            getattr(chip_smoke, name)(workdir)
+            args = [results[CHAINED[name]]] if CHAINED.get(name) in results \
+                else []
+            results[name] = getattr(chip_smoke, name)(workdir, *args)
             print(f"{name}: {time.perf_counter() - t0:.1f} s ({where})",
                   flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s ({where})", flush=True)

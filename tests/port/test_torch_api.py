@@ -17,7 +17,8 @@ from palace_torch.cases import (write_adaptive_case, write_amr_driven_case,
                                  write_amr_eigen_case, write_cavity_case,
                                  write_eigen_case, write_guide_eigen_case,
                                  write_rings_case, write_slice_case,
-                                 write_tem_line_case, write_waveguide_case)
+                                 write_tem_line_case, write_tem_section_case,
+                                 write_waveguide_case)
 from palace_torch.config import IoData
 from palace_torch.device import resolve_device
 from palace_torch.drivers import driven
@@ -172,14 +173,19 @@ def test_frequency_dependent_boundaries_are_ported(tmp_path, termination,
 
 @pytest.mark.parametrize("ptype,item", [
     ("TRANSIENT", None),  # ported: routes to drivers/transient.py
-    ("BOUNDARY_MODE", "2D meshes"),
+    ("BOUNDARY_MODE", None),  # ported: routes to drivers/boundarymode.py
 ])
 def test_unported_drivers_name_roadmap_item(tmp_path, ptype, item):
+    """Every problem type routes to its driver (no driver is refused whole
+    any more), and `python -m palace_torch` runs a deck of each of the
+    last two ported."""
     from palace_torch.config import ProblemType
-    from palace_torch.drivers import get_driver, transient
+    from palace_torch.drivers import _QUEUE, boundarymode, get_driver, \
+        transient
 
-    if item is None:
-        assert get_driver(getattr(ProblemType, ptype)) is transient.solve
+    assert item is None and not _QUEUE
+    if ptype == "TRANSIENT":
+        assert get_driver(ProblemType.TRANSIENT) is transient.solve
         cfg = write_tem_line_case(str(tmp_path), 10.0, 2, 2, 1,
                                   max_time=0.004, device="CPU", verbose=0)
         assert cli_main([cfg, "-o", str(tmp_path / "out")]) == 0
@@ -187,8 +193,14 @@ def test_unported_drivers_name_roadmap_item(tmp_path, ptype, item):
                        skiprows=1)
         assert v.shape == (3, 4) and np.isfinite(v).all()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        get_driver(getattr(ProblemType, ptype))
+    assert get_driver(ProblemType.BOUNDARY_MODE) is boundarymode.solve
+    cfg = write_tem_section_case(str(tmp_path), 3, 1, 1, device="CPU",
+                                 verbose=0)
+    assert cli_main([cfg, "-o", str(tmp_path / "out")]) == 0
+    kn = np.loadtxt(tmp_path / "out" / "mode-kn.csv", delimiter=",",
+                    skiprows=1, ndmin=2)
+    assert kn.shape == (1, 7)
+    assert kn[0, 3] == pytest.approx(1.5, rel=1e-8)  # sqrt(eps_r 2.25)
 
 
 def test_lint_clean():
