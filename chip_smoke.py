@@ -234,8 +234,22 @@ result line):
      1e-8 of phase 28's; and the matched 2D line (20 mm, 40 x 4 cells,
      Order 2) in the time domain (GeneralizedAlpha, phase 22's pulse and
      steps): peak |V2| within 8% of peak |V1| and the envelope delay
-     within 5% of L / c0.
-Neither structured-apply kernel runs on phases 10-29 (element-mode
+     within 5% of L / c0;
+ 30. dof-sharded solves on SHARDED_RANKS = 2 ranks that share the card
+     (gloo; `python3 chip_smoke.py --rank RANK WORLD DIR`, started by the
+     script, a file store in DIR), through palace_torch.run: the driven
+     slice of phase 4 on the sharded FGMRES + p-MG (ELL fine level; every
+     column's relres <= Tol, the columns and domain-E.csv within 10 x Tol
+     of phase 4's), the rings electrostatic case of phase 12 on the
+     sharded CG (C within 1e-10 of phase 12's) and the eigen cavity at
+     SHARDED_EIGEN_N^3, Order 3, on the sharded inner solver (Re f within
+     1e-8 of a single-rank run); each part's backend, n_shards, interface
+     size and largest interior block, wall time, peak memory and
+     collectives by rank, 0 structured-kernel launches; then the qdata
+     rows: nd_operator curl + mass on 10^3 hexes at Order 2 and 3, qdata
+     against element mode on the card (1e-12), the CUDA-event medians,
+     device times and bytes bounds of both.
+Neither structured-apply kernel runs on phases 10-30 (element-mode
 operators and the element fine level, plain torch; the transient step is
 a host splu, the Floquet eigensolve ARPACK, the Floquet-port solves
 sparse direct and the mode pencils host splu and ARPACK); the kernel
@@ -249,7 +263,7 @@ processes on the one card: phases 4-9, 24 and 27 in this one, phases
 itself and stops with it), so that
 their lines interleave and their times include the other processes'
 share of the card and of the host; each process counts its own kernel
-launches.
+launches.  Phase 30 runs last, alone on the card.
 The line before the last is the kernel JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -459,6 +473,19 @@ SMALL_PLATE_LINE, SMALL_RECT_EIGEN, SMALL_BM = (20.0, 10, 2, 2), (4, 2, 3), \
 #: torch (the groups also their BLAS) on a third of the host's cores,
 #: rounded up.
 GROUP_FLAG, GROUP_RESULT = "--phases", "paths.json"
+#: Phase 30: SHARDED_RANKS ranks started by `--rank RANK WORLD DIR` (gloo:
+#: they share the card), the eigen cavity's depth there, the device of the
+#: ranks' runs (a CPU rehearsal sets "CPU"), the orders of the qdata rows,
+#: and the single-rank results that phases 4, 6 and 12 leave for its gates.
+SHARDED_RANKS, RANK_FLAG = 2, "--rank"
+#: Cut from EIGEN_N = 8 (321 s a rank, over the phase's ~180 s aim; its
+#: modes 1.809e-8 from the analytic ones) to 5 (149 s, 3.010e-7): the
+#: sharded eigensolve is bound by the latency of its all-reduces.
+SHARDED_EIGEN_N = 5
+SHARDED_DEVICE = "GPU"
+QDATA_ORDERS = (2, 3)
+SINGLE_RANK: dict = {}
+ES_C_FILE = "electrostatic-C.json"
 THREADS = -(-(os.cpu_count() or 3) // 3)
 #: The whole run's time limit (s), less a margin for the last lines.
 DEADLINE_S = 1150.0
@@ -927,6 +954,8 @@ def phase_driven(workdir: str):
     post = res["post_dir"]
     for name in ("domain-E.csv", "error-indicators.csv", "port-S.csv"):
         _table(os.path.join(post, name))
+    SINGLE_RANK["driven"] = (_solution_matrix(res),
+                             _table(os.path.join(post, "domain-E.csv")))
     print(f"[4 driven] {DRIVEN_N}^3 hex p=3: {res['num_dofs']} dofs, 8 "
           f"columns, "
           f"iterations {info.get('total_its')} total, max relres "
@@ -1013,6 +1042,8 @@ def phase_eigen(workdir: str):
     post = res["post_dir"]
     for name in ("eig.csv", "domain-E.csv", "error-indicators.csv"):
         _table(os.path.join(post, name))
+    if SHARDED_EIGEN_N == EIGEN_N:
+        SINGLE_RANK["eigen"] = f
     print(f"[6 eigen] {EIGEN_N}^3 hex p=3: {res['num_dofs']} dofs, Re f "
           f"{', '.join(f'{v:.9f}' for v in f)} GHz (analytic {f101:.9f} x3, "
           f"{f111:.9f}; max relative error {ferr.max():.3e}), max backward "
@@ -1478,6 +1509,9 @@ def phase_electrostatic(workdir: str):
     for name in ("terminal-C.csv", "terminal-Cinv.csv", "terminal-Cm.csv",
                  "terminal-V.csv", "domain-E.csv"):
         _table(os.path.join(res["post_dir"], name))
+    SINGLE_RANK["C"] = C.tolist()
+    with open(os.path.join(workdir, ES_C_FILE), "w") as f:
+        json.dump(SINGLE_RANK["C"], f)  # for phase 30 in the first process
     _static_line("12 electrostatic", res, wall, peak, resid, rep, idle,
                  t_phase, f"C11/C12/C22 {C[0, 0]:.12e}/{C[0, 1]:.12e}/"
                  f"{C[1, 1]:.12e} F (palace_tpu's within {cerr:.3e}), "
@@ -3036,6 +3070,397 @@ def phase_boundarymode_3d(workdir: str, neff28: float | None = None):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: dof-sharded solves on two ranks that share the card
+
+
+def _sharded_parts(workdir: str, device: str) -> list:
+    """(part, config) of phase 30, written into `workdir`: phase 4's driven
+    slice, phase 12's rings electrostatic case and the eigen cavity at
+    SHARDED_EIGEN_N^3, Order 3 (phase 6's case unless cut)."""
+    from palace_torch.cases import (write_eigen_case, write_rings_case,
+                                    write_slice_case)
+
+    return [
+        ("driven", write_slice_case(os.path.join(workdir, "driven"),
+                                    DRIVEN_N, 3, tol=1e-8, max_its=200,
+                                    device=device, verbose=0)),
+        ("electrostatic", write_rings_case(
+            os.path.join(workdir, "electrostatic"), RINGS_H, RINGS_ORDER,
+            problem="Electrostatic", tol=1e-10, max_its=3000, device=device,
+            verbose=0)),
+        ("eigen", write_eigen_case(os.path.join(workdir, "eigen"),
+                                   SHARDED_EIGEN_N, 3, tol=1e-8,
+                                   device=device, verbose=0)),
+    ]
+
+
+def _solution_matrix(res) -> "np.ndarray":
+    import numpy as np
+
+    sols = res["solutions"]
+    return np.stack([sols[k] for k in sorted(sols)], axis=1)
+
+
+def _collective_latency(parallel, device, n: int = 200) -> dict:
+    """Milliseconds one all-reduce of 16 float64 takes (all ranks calling
+    together): `parallel.psum` on the run's device (a CUDA tensor through a
+    host copy) and on the host, and gloo's own CUDA path."""
+    import torch
+    import torch.distributed as dist
+
+    calls = {"psum": parallel.psum,
+             "gloo-cuda": lambda t: dist.all_reduce(t)}
+    out = {}
+    for name, where in (("psum", device.type), ("psum", "cpu"),
+                        ("gloo-cuda", "cuda")):
+        if where == "cuda" and device.type != "cuda":
+            continue
+        t = torch.zeros(16, dtype=torch.float64, device=where)
+        for _ in range(10):
+            calls[name](t)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            calls[name](t)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        out[f"{name} {where}"] = 1e3 * (time.perf_counter() - t0) / n
+    return out
+
+
+def rank_main(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase 30: joins the gloo group through a file store in
+    `workdir`, runs every part of `_sharded_parts` through palace_torch.run
+    and writes rank<rank>.json (wall time, peak memory and kernel launches
+    of each part; rank 0 also the results the phase gates, with its
+    solutions in rank0.npz)."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    import numpy as np
+    import torch
+
+    import palace_torch
+    from palace_torch import parallel
+
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    with open(os.path.join(workdir, "parts.json")) as f:
+        spec = json.load(f)
+    on_card = spec["device"] == "GPU"
+    parallel.init(rank, world, f"file://{os.path.join(workdir, 'store')}",
+                  device_type="cuda" if on_card else "cpu")
+    out, arrays = {"latency_ms": _collective_latency(
+        parallel, torch.device("cuda") if on_card else torch.device("cpu"))}, {}
+    for part, cfg in spec["parts"]:
+        base = _memory_mark() if on_card else 0
+        _zero_counts()
+        parallel.reset_stats()
+        t0 = time.perf_counter()
+        res = palace_torch.run(cfg)
+        if on_card:
+            torch.cuda.synchronize()
+        rec = {"wall": time.perf_counter() - t0,
+               "peak_gib": ((torch.cuda.max_memory_allocated() - base)
+                            / 2 ** 30 if on_card else None),
+               "launches": list(_counts()), "num_dofs": res["num_dofs"],
+               "collectives": dict(parallel.STATS),
+               "durations": (_durations(res["post_dir"]) if rank == 0
+                             else "")}
+        prov = res["provenance"]
+        rec["parallel"] = prov.get("parallel")
+        if part == "driven":
+            rec["fine_level"] = prov.get("fine_level")
+            rec["solver_path"] = prov.get("solver_path")
+            rec["col_relres"] = sorted(res["ksp"]["col_relres"].values())
+            rec["post_dir"] = res["post_dir"]
+            arrays["driven"] = _solution_matrix(res)
+        elif part == "electrostatic":
+            rec["C"] = np.asarray(res["C"]).tolist()
+            rec["cg_relres"] = prov.get("cg_relres")
+            rec["cg_iterations"] = prov.get("cg_iterations")
+        else:
+            rec["eigen_path"] = prov.get("eigen_path")
+            rec["fine_level"] = prov.get("fine_level")
+            rec["f_ghz"] = np.real(res["frequencies_ghz"]).tolist()
+            rec["bkwd"] = np.asarray(res["backward_errors"]).tolist()
+            rec["ksp_iterations"] = prov.get("ksp_iterations")
+        out[part] = rec
+    if rank == 0:
+        np.savez(os.path.join(workdir, "rank0.npz"), **arrays)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    parallel.shutdown()
+    return 0
+
+
+def _run_ranks(workdir: str, world: int) -> list:
+    """Starts the ranks of phase 30 (threads split between them), waits
+    for them within the run's deadline and returns their records; fails with
+    the end of a failed rank's log."""
+    threads = str(max(1, (os.cpu_count() or world) // world))
+    env = dict(os.environ, OMP_NUM_THREADS=threads, MKL_NUM_THREADS=threads,
+               OPENBLAS_NUM_THREADS=threads)
+    procs = []
+    try:
+        for r in range(world):
+            log = open(os.path.join(workdir, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), RANK_FLAG,
+                 str(r), str(world), workdir], env=env, stdout=log,
+                stderr=subprocess.STDOUT), log))
+        for r, (proc, log) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, DEADLINE_S - (
+                    time.perf_counter() - T_START)))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            if rc != 0:
+                with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                    tail = f.read()[-4000:]
+                raise SmokeFailure(f"phase 30 rank {r} failed ({rc}):\n"
+                                   f"{tail}")
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    recs = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _qdata_rows(device: str) -> list:
+    """The qdata apply against the element-mode apply of nd_operator (curl
+    and mass) on the slice's cavity mesh (DRIVEN_N^3 hexes) at each of
+    QDATA_ORDERS: both held to 1e-12 of each other, their CUDA-event
+    medians and device times, and each one's bound (its tables, u and y
+    moved once over the memory rate, or its operations over the float64
+    rate, whichever is larger)."""
+    import numpy as np
+    import torch
+
+    from palace_torch.fem.nd import NDSpace
+    from palace_torch.fem.nd_operators import nd_operator
+    from palace_torch.mesh.generate import box_hex
+
+    mesh = box_hex(DRIVEN_N, DRIVEN_N, DRIVEN_N, lx=24.0, ly=24.0, lz=24.0)
+    coefs = dict(curl_coef={1: np.eye(3)}, mass_coef={1: 2.0 * np.eye(3)})
+    rows = []
+    for p in QDATA_ORDERS:
+        space = NDSpace(mesh, p)
+        ops = {mode: nd_operator(space, device=device, mode=mode, **coefs)
+               for mode in ("element", "qdata")}
+        u = torch.as_tensor(np.random.default_rng(p).standard_normal(
+            space.num_dofs), device=device)
+        y = {m: op(u) for m, op in ops.items()}
+        err = float((y["qdata"] - y["element"]).abs().max()
+                    / y["element"].abs().max())
+        check(err <= 1e-12, f"qdata apply at p={p} against element mode: "
+                            f"{err:.3e} > 1e-12")
+        row = {"p": p, "nd": int(space.elem_dofs[0].shape[1]),
+               "elements": mesh.num_elements, "dofs": space.num_dofs,
+               "rel_err": err}
+        for mode, op in ops.items():
+            nbytes = 8 * 2 * op.num_dofs
+            flops = 0.0
+            for t in op._tables:
+                E, nd = t["gidx"].shape
+                nbytes += 8 * 2 * E * nd  # gather indices and signs
+                if "A" in t:
+                    nbytes += 8 * t["A"].numel()
+                    flops += 2.0 * t["A"].numel()
+                else:
+                    for G, W in t["qd"]:
+                        nq, _, d = G.shape
+                        nbytes += 8 * (G.numel() + W.numel())
+                        flops += E * (4.0 * nq * d * nd + 2.0 * nq * d * d)
+            t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["float64"]
+            on_card = device == "cuda"
+            row[mode] = {
+                "ms": _time_ms(lambda: op(u)) if on_card else float("nan"),
+                "device_ms": (_device_ms(lambda: op(u)) if on_card
+                              else float("nan")),
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "gb": nbytes / 1e9}
+        rows.append(row)
+    return rows
+
+
+def _single_rank_reference(part: str, cfg: str, out_dir: str) -> None:
+    """Phase 30's single-rank result of `part` (its config `cfg`, run on one
+    rank into `out_dir`) into SINGLE_RANK, unless an earlier phase of the
+    run left it there."""
+    import numpy as np
+
+    import palace_torch
+
+    key = {"driven": "driven", "electrostatic": "C", "eigen": "eigen"}[part]
+    if key in SINGLE_RANK:
+        return
+    res = palace_torch.run(cfg, output_dir=out_dir)
+    SINGLE_RANK[key] = (
+        (_solution_matrix(res), _table(os.path.join(
+            res["post_dir"], "domain-E.csv"))) if part == "driven"
+        else np.asarray(res["C"]).tolist() if part == "electrostatic"
+        else np.real(res["frequencies_ghz"]))
+
+
+def phase_sharded_eigen_reference(workdir: str) -> None:
+    """Phase 30's cut cavity on one rank (SHARDED_EIGEN_N^3, Order 3), run
+    in the first process beside the groups so that phase 30, alone on the
+    card, holds only its ranks."""
+    from palace_torch.cases import write_eigen_case
+
+    t0 = time.perf_counter()
+    d = os.path.join(workdir, "sharded_eigen_single")
+    _single_rank_reference("eigen", write_eigen_case(
+        d, SHARDED_EIGEN_N, 3, tol=1e-8, device=SHARDED_DEVICE, verbose=0),
+        os.path.join(d, "out"))
+    print(f"[30 reference] {SHARDED_EIGEN_N}^3 hex p=3 on one rank: Re f "
+          f"{', '.join(f'{v:.9f}' for v in SINGLE_RANK['eigen'])} GHz; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_sharded(workdir: str) -> int:
+    """Phase 30: SHARDED_RANKS ranks (gloo) on the one card, alone on it,
+    through palace_torch.run: the driven slice on the sharded FGMRES + p-MG
+    (the ELL fine level; every column's relres <= Tol, the columns and
+    domain-E.csv within 10 x Tol of phase 4's single-rank run), the rings
+    electrostatic case on the sharded CG (C within 1e-10 of phase 12's)
+    and the eigen cavity on the sharded inner solver (eigenvalues within
+    1e-8 of phase 6's); no structured kernel launches; then the qdata rows.
+    A single-rank reference that no earlier phase of the run left (every
+    one when the phase is rehearsed alone; in the full run phase 4, phase
+    12 and `phase_sharded_eigen_reference` leave them) is a single-rank run
+    of the same config here, before the ranks start.  Returns the structured kernels' launches
+    (0)."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    wd = os.path.join(workdir, "sharded")
+    os.makedirs(wd)
+    on_card = SHARDED_DEVICE == "GPU"
+    parts = _sharded_parts(wd, SHARDED_DEVICE)
+    with open(os.path.join(wd, "parts.json"), "w") as f:
+        json.dump({"device": SHARDED_DEVICE, "parts": parts}, f)
+    t0 = time.perf_counter()
+    for part, cfg in parts:
+        _single_rank_reference(part, cfg, os.path.join(wd, f"{part}_single"))
+    t_ref = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = _run_ranks(wd, SHARDED_RANKS)
+    t_ranks = time.perf_counter() - t0
+    r0 = recs[0]
+    with np.load(os.path.join(wd, "rank0.npz")) as d:
+        X = d["driven"]
+    tol = 1e-8
+    d, e, g = r0["driven"], r0["electrostatic"], r0["eigen"]
+    Xs, dom_s = SINGLE_RANK["driven"]
+    col = max(float(np.linalg.norm(X[:, i] - Xs[:, i])
+                    / np.linalg.norm(Xs[:, i])) for i in range(X.shape[1]))
+    dom = _rel_diff(_table(os.path.join(d["post_dir"], "domain-E.csv")),
+                    dom_s)
+    C, Cs = np.asarray(e["C"]), np.asarray(SINGLE_RANK["C"])
+    cerr = float((np.abs(C - Cs) / np.abs(Cs)).max())
+    f, fs = np.asarray(g["f_ghz"]), np.asarray(SINGLE_RANK["eigen"])
+    ferr = float((np.abs(f - fs) / fs).max())
+    f101 = C0 / (2 * CAVITY_L * math.sqrt(CAVITY_EPS)) * math.sqrt(2) / 1e9
+    f111 = C0 / (2 * CAVITY_L * math.sqrt(CAVITY_EPS)) * math.sqrt(3) / 1e9
+    aerr = float((np.abs(f - [f101, f101, f101, f111])
+                  / [f101, f101, f101, f111]).max())
+
+    def line(part, extra):
+        info = r0[part]["parallel"] or {}
+        walls = ", ".join(f"{rec[part]['wall']:.2f}" for rec in recs)
+        peaks = ", ".join("not measured" if rec[part]["peak_gib"] is None
+                          else f"{rec[part]['peak_gib']:.3f}" for rec in recs)
+        coll = ", ".join(f"{rec[part]['collectives']['calls']} in "
+                         f"{rec[part]['collectives']['seconds']:.2f} s"
+                         for rec in recs)
+        print(f"[30 sharded {part}] {info.get('backend')}, n_shards "
+              f"{info.get('n_shards')} ({', '.join(info.get('devices', []))})"
+              f": {r0[part]['num_dofs']} dofs, interface {info.get('n_ifc')},"
+              f" largest interior block {info.get('max_int')}; {extra}; wall "
+              f"{walls} s, peak device memory {peaks} GiB and collectives "
+              f"{coll} by rank; {r0[part]['durations']}; structured kernel "
+              f"launches {[rec[part]['launches'] for rec in recs]}",
+              flush=True)
+
+    line("driven", f"{d['fine_level']} fine level, column relres max "
+                   f"{max(d['col_relres']):.3e}, columns within {col:.3e} "
+                   f"and domain-E within {dom:.3e} of the single rank's")
+    line("electrostatic", f"CG iterations {e['cg_iterations']}, relres "
+                          f"{e['cg_relres']}; C within {cerr:.3e} of the "
+                          "single rank's")
+    line("eigen", f"{SHARDED_EIGEN_N}^3 hex p=3, {g['fine_level']} fine "
+                  f"level, Re f {', '.join(f'{v:.9f}' for v in f)} GHz, "
+                  f"within {ferr:.3e} of the single rank's and "
+                  f"{aerr:.3e} of the analytic modes, max backward "
+                  f"error {max(g['bkwd']):.3e}, FGMRES iterations "
+                  f"{g['ksp_iterations']}")
+    total = 0
+    for part in ("driven", "electrostatic", "eigen"):
+        info = r0[part]["parallel"] or {}
+        check(info.get("n_shards") == SHARDED_RANKS
+              and info.get("backend") == "gloo" and info.get("n_ifc", 0) > 0,
+              f"phase 30 {part}: not sharded over {SHARDED_RANKS} gloo ranks "
+              f"({info})")
+        for r, rec in enumerate(recs):
+            check(rec[part]["launches"] == [0, 0],
+                  f"phase 30 {part}: rank {r} launched the structured "
+                  f"kernels {rec[part]['launches']} times")
+            total += sum(rec[part]["launches"])
+    check(d["fine_level"] == "sharded-ell" and d["solver_path"] == "device",
+          f"phase 30 driven: {d['fine_level']}, {d['solver_path']}")
+    check(len(d["col_relres"]) == 8 and max(d["col_relres"]) <= tol,
+          f"phase 30 driven: column relres {d['col_relres']}")
+    check(col <= 10 * tol and dom <= 10 * tol,
+          f"phase 30 driven against the single rank: columns {col:.3e}, "
+          f"domain-E {dom:.3e} (gate {10 * tol:.0e})")
+    check(max(e["cg_relres"]) <= 1e-10, f"phase 30 electrostatic: CG relres "
+                                        f"{e['cg_relres']}")
+    check(cerr <= 1e-10, f"phase 30 electrostatic: C {C.tolist()} against "
+                         f"the single rank's {Cs.tolist()}: {cerr:.3e}")
+    check(g["eigen_path"] == "device-lanczos"
+          and g["fine_level"] == "sharded-ell",
+          f"phase 30 eigen: {g['eigen_path']}, {g['fine_level']}")
+    check(max(g["bkwd"]) <= tol, f"phase 30 eigen: backward errors "
+                                 f"{g['bkwd']}")
+    check(ferr <= 1e-8, f"phase 30 eigen: f {f} against the single rank's "
+                        f"{fs}: {ferr:.3e}")
+    t0 = time.perf_counter()
+    rows = _qdata_rows("cuda" if on_card else "cpu")
+    for row in rows:
+        el, qd = row["element"], row["qdata"]
+        print(f"[30 qdata] nd_operator curl + mass on {DRIVEN_N}^3 hexes, "
+              f"p={row['p']} (nd = {row['nd']}, {row['dofs']} dofs): qdata "
+              f"within {row['rel_err']:.3e} of element mode; element "
+              f"{el['ms']:.4f} ms (device {el['device_ms']:.4f} ms, "
+              f"{el['gb']:.4f} GB, bound {el['bound_ms']:.4f} ms, "
+              f"{el['bound_by']}), qdata {qd['ms']:.4f} ms (device "
+              f"{qd['device_ms']:.4f} ms, {qd['gb']:.4f} GB, bound "
+              f"{qd['bound_ms']:.4f} ms, {qd['bound_by']})", flush=True)
+    lat = r0["latency_ms"]
+    print(f"[30 sharded] one psum of 16 float64 over {SHARDED_RANKS} gloo "
+          f"ranks: {', '.join(f'{v:.3f} ms ({k})' for k, v in lat.items())}"
+          f"; {SHARDED_RANKS} ranks {t_ranks:.1f} s, "
+          f"single-rank references run here {t_ref:.1f} s, qdata rows "
+          f"{time.perf_counter() - t0:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def _phases_waveport(workdir: str) -> dict:
     """Phases 14-16, 21 and 26; returns their kernel launches by path."""
     wp, S14 = phase_waveport(workdir)
@@ -3066,9 +3491,11 @@ def _phases_static_eigen(workdir: str) -> dict:
                 boundarymode=0, boundarymode_3d=bm3)
 
 
-#: The phase groups that run in processes of their own, by name.
+#: The phase groups that run in processes of their own, by name; phase 12
+#: runs in STATIC_GROUP.
+STATIC_GROUP = "10-13,17-20,23,25,28,29"
 GROUPS = {"14-16,21,26": _phases_waveport,
-          "10-13,17-20,23,25,28,29": _phases_static_eigen}
+          STATIC_GROUP: _phases_static_eigen}
 
 
 def _start_group(name: str, directory: str):
@@ -3150,6 +3577,7 @@ def main() -> int:
                 by_path["structured_apply_flat_v2"]["eigen"] = phase_eigen(
                     workdir)
                 phase_eigen_parity(workdir)
+                phase_sharded_eigen_reference(workdir)
                 _check_groups(groups)
                 by_path["structured_apply_flat"]["adaptive"] = (
                     phase_adaptive(workdir))
@@ -3164,10 +3592,14 @@ def main() -> int:
                     if proc.poll() is None:
                         proc.kill()
                         proc.wait()
+            with open(os.path.join(groups[STATIC_GROUP][1], ES_C_FILE)) as f:
+                SINGLE_RANK["C"] = json.load(f)
+            sharded = phase_sharded(workdir)
             for name in by_path:
                 by_path[name].update(transient=transient,
                                      floquet_eigen=floquet_eigen,
-                                     two_d=two_d, **other_paths)
+                                     two_d=two_d, sharded=sharded,
+                                     **other_paths)
     except SmokeFailure as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -3196,4 +3628,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [GROUP_FLAG]:
         sys.exit(group_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == [RANK_FLAG]:
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -1,4 +1,6 @@
-"""Command-line interface: ``python -m palace_torch [options] CONFIG.json``."""
+"""Command-line interface: ``python -m palace_torch [options] CONFIG.json``,
+or ``torchrun --nproc_per_node=N -m palace_torch [options] CONFIG.json`` for
+N ranks (see palace_torch.parallel)."""
 
 from __future__ import annotations
 
@@ -29,7 +31,12 @@ def main(argv=None):
         iodata = palace_torch.run(args.config, dry_run=True)
         print(json.dumps(iodata.config.resolved_dict(), indent=2, default=str))
         return 0
-    palace_torch.run(args.config, output_dir=args.output)
+    from palace_torch import parallel
+
+    try:
+        palace_torch.run(args.config, output_dir=args.output)
+    finally:
+        parallel.shutdown()
     return 0
 
 

@@ -19,6 +19,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from palace_torch import parallel
 from palace_torch.config import IoData
 from palace_torch.mesh.crack import local_edge_split
 from palace_torch.mesh.mesh import Mesh
@@ -140,7 +141,8 @@ def adapt_loop(iodata: IoData, mesh: Mesh, solve_and_estimate,
         if (it >= cfg.max_it or eta_norm <= cfg.tol
                 or (cfg.max_size > 0 and ndof >= cfg.max_size)):
             return result, eta_elem, eta_norm, mesh, it
-        if post_dir is not None and cfg.save_adapt_iterations:
+        if (post_dir is not None and cfg.save_adapt_iterations
+                and parallel.is_root()):
             archive_iteration(post_dir, it + 1, cfg.max_it)
         marked = dorfler_mark(eta_elem**2, cfg.update_fraction)
         ne = mesh.num_elements
@@ -153,7 +155,8 @@ def adapt_loop(iodata: IoData, mesh: Mesh, solve_and_estimate,
                       f"(error {eta_norm:.3e}): {e}")
             return result, eta_elem, eta_norm, mesh, it
         it += 1
-        if post_dir is not None and cfg.save_adapt_mesh:
+        if (post_dir is not None and cfg.save_adapt_mesh
+                and parallel.is_root()):
             import os
 
             from palace_torch.mesh import gmsh_write

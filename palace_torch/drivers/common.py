@@ -1,7 +1,8 @@
 """Shared driver utilities: logging, mesh preparation, output directory,
-the single-device SPD solve, coordinates, the measurement tables of the
-static drivers and the error-indicator table (counterpart of
-palace_tpu/drivers/common.py; `solve_spd` is its single-device branch)."""
+the SPD solve (single device, or dof-sharded over the ranks), coordinates,
+the measurement tables of the static drivers and the error-indicator table
+(counterpart of palace_tpu/drivers/common.py).  Only rank 0 logs and makes
+the output directory."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from palace_torch import parallel
 from palace_torch.config import IoData, ValueType
 from palace_torch.fem import evaluation
 from palace_torch.mesh.mesh import Mesh, load_mesh
@@ -19,7 +21,8 @@ from palace_torch.utils import provenance, timers
 
 
 def print_log(iodata: IoData, msg: str):
-    if iodata.problem.verbose > 0:
+    """Log on rank 0 (every run has one) when the config is verbose."""
+    if iodata.problem.verbose > 0 and parallel.is_root():
         print(f"[palace-torch] {msg}", flush=True)
 
 
@@ -89,7 +92,8 @@ def make_output_dir(iodata: IoData, output_dir: Optional[str]) -> str:
     if output_dir is None:
         base = os.path.dirname(os.path.abspath(iodata.path or "."))
         output_dir = os.path.join(base, iodata.problem.output)
-    os.makedirs(output_dir, exist_ok=True)
+    if parallel.is_root():  # only rank 0 writes files
+        os.makedirs(output_dir, exist_ok=True)
     return output_dir
 
 
@@ -104,23 +108,50 @@ def solve_spd(iodata: IoData, eliminated_op, raw_op, b: torch.Tensor,
     returns (x, iterations, relres).  As in palace_tpu, the iteration cap is
     max(Linear.MaxIts, 1000) and a solve that stops at it prints a WARNING
     and carries on; every solve's iterations and relres also go to the
-    provenance (`cg_iterations`, `cg_relres`)."""
+    provenance (`cg_iterations`, `cg_relres`).
+
+    With more than one rank, an element-mode operator with a space routes
+    through the dof-sharded CG (parallel/dofsharded.py: SFC partition,
+    packed interior blocks, an all-reduce over the interface only), under
+    the condition of palace_tpu/drivers/common.py:122-125."""
     from palace_torch.linalg.iterative import cg
     from palace_torch.linalg.smoothers import jacobi
 
     ln = iodata.solver.linear
-    with timers.block("Linear solve"):
-        mask = torch.as_tensor(np.asarray(ess_mask, bool),
-                               device=raw_op.device)
-        M = jacobi(raw_op.diagonal(), mask)
-        res = cg(eliminated_op, b, M=M, tol=ln.tol,
-                 max_its=max(ln.max_its, 1000))
-    if not res.converged:
-        print_log(iodata, f"  WARNING: CG did not converge "
-                          f"(relres={res.relres:.2e})")
-    provenance.append("cg_iterations", res.iterations)
-    provenance.append("cg_relres", res.relres)
-    return res.x, res.iterations, res.relres
+    max_its = max(ln.max_its, 1000)
+    if (parallel.n_shards() > 1
+            and getattr(raw_op, "space", None) is not None
+            and raw_op.mode == "element"):
+        from palace_torch.parallel import dofsharded as ds
+
+        cache = getattr(raw_op, "_dofsharded_cache", None)
+        if cache is None:
+            part = ds.partition_for_space(raw_op.space, parallel.n_shards())
+            cache = raw_op._dofsharded_cache = ds.shard_pa_operator(raw_op,
+                                                                    part)
+        with timers.block("Linear solve"):
+            x, its, relres, _ = ds.solve_spd_sharded(
+                raw_op, b, ess_mask, sharded=cache, tol=ln.tol,
+                max_its=max_its)
+        provenance.record("parallel", {
+            **parallel.describe(), "num_dofs": cache.part.num_dofs,
+            "max_int": cache.part.max_int, "n_ifc": cache.part.n_ifc})
+        if relres > ln.tol:
+            print_log(iodata, f"  WARNING: sharded CG did not converge "
+                              f"(relres={relres:.2e})")
+    else:
+        with timers.block("Linear solve"):
+            mask = torch.as_tensor(np.asarray(ess_mask, bool),
+                                   device=raw_op.device)
+            M = jacobi(raw_op.diagonal(), mask)
+            res = cg(eliminated_op, b, M=M, tol=ln.tol, max_its=max_its)
+        x, its, relres = res.x, res.iterations, res.relres
+        if not res.converged:
+            print_log(iodata, f"  WARNING: CG did not converge "
+                              f"(relres={relres:.2e})")
+    provenance.append("cg_iterations", its)
+    provenance.append("cg_relres", relres)
+    return x, its, relres
 
 
 # ---------------------------------------------------------------------------

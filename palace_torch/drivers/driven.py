@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from palace_torch import parallel
 from palace_torch.config import IoData, ValueType
 from palace_torch.drivers.amr import adapt_loop, refuse_hex_amr
 from palace_torch.drivers.common import (
@@ -302,8 +303,9 @@ def _solve_on_mesh(iodata: IoData, mesh, post_dir: str,
                 ex, i = map(int, key.split("_"))
                 if (ex, i) not in sols and i < len(omegas):
                     sols[(ex, i)] = old[key]
-        np.savez_compressed(ckpt, **{f"{ex}_{i}": E
-                                     for (ex, i), E in sols.items()})
+        if parallel.is_root():
+            np.savez_compressed(ckpt, **{f"{ex}_{i}": E
+                                         for (ex, i), E in sols.items()})
 
     with timers.block("Postprocessing"):
         probe_locs = None
@@ -456,24 +458,31 @@ def sweep_uniform(iodata, sop: SpaceOperator, omegas, excitations, skip=0
 
 def sweep_uniform_device(iodata, sop: SpaceOperator, omegas, excitations,
                          skip=0) -> Dict[Tuple[int, int], np.ndarray]:
-    """Frequency-blocked FGMRES + p-multigrid sweep on sop.device (single
-    device)."""
+    """Frequency-blocked FGMRES + p-multigrid sweep on sop.device; with more
+    than one rank, the dof-sharded solver over the ranks (palace_tpu:
+    drivers/driven.py:474-482; it runs the ELL fine level)."""
     from palace_torch.linalg.device_ksp import BlockedDeviceSolver
 
     lin = iodata.solver.linear
+    kw = dict(tol=lin.tol, max_its=lin.max_its,
+              restart=(lin.max_size if lin.max_size > 0 else 30),
+              smooth_order=(lin.mg_smooth_order if lin.mg_smooth_order > 0
+                            else 4),
+              smooth_its=lin.mg_smooth_its, use_aux=lin.mg_use_aux,
+              coarsening=lin.mg_coarsening, max_levels=lin.mg_max_levels,
+              log=lambda s: print_log(iodata, s), device=sop.device)
+    args = (sop.space, iodata.boundaries.pec, sop.driven_terms(omegas),
+            omegas, sop.ess_mask)
     with timers.block("  Setup"):
-        solver = BlockedDeviceSolver(
-            sop.space, iodata.boundaries.pec, sop.driven_terms(omegas),
-            omegas, sop.ess_mask,
-            tol=lin.tol, max_its=lin.max_its,
-            restart=(lin.max_size if lin.max_size > 0 else 30),
-            smooth_order=(lin.mg_smooth_order if lin.mg_smooth_order > 0
-                          else 4),
-            smooth_its=lin.mg_smooth_its, use_aux=lin.mg_use_aux,
-            coarsening=lin.mg_coarsening, max_levels=lin.mg_max_levels,
-            log=lambda s: print_log(iodata, s), device=sop.device)
-    provenance.record("fine_level", "structured" if solver.structured
-                      is not None else "element")
+        if parallel.n_shards() > 1:
+            from palace_torch.linalg.device_ksp_sharded import (
+                ShardedBlockedDeviceSolver)
+
+            solver = ShardedBlockedDeviceSolver(*args, **kw)
+            provenance.record("parallel", solver.describe())
+        else:
+            solver = BlockedDeviceSolver(*args, **kw)
+    provenance.record("fine_level", solver.fine_level)
     nfreq = len(omegas)
     sols: Dict[Tuple[int, int], np.ndarray] = {}
     total_its = 0

@@ -320,9 +320,7 @@ def sweep_adaptive(iodata, sop: SpaceOperator, omegas, excitations,
                 restart=(lin.max_size if lin.max_size > 0 else 30),
                 max_block=1, log=lambda s: print_log(iodata, s),
                 device=sop.device)
-            provenance.record("fine_level",
-                              "structured" if report.solver.structured
-                              is not None else "element")
+            provenance.record("fine_level", report.solver.fine_level)
         return report.solver
 
     def solve_hdm(omega, ex):

@@ -340,6 +340,8 @@ def solve(iodata: IoData, output_dir: str | None = None,
                     info = device_shift_invert_eigs.last_info
                     provenance.record("eigen_path", "device-lanczos")
                     provenance.record("fine_level", info["fine_level"])
+                    if info["parallel"] is not None:
+                        provenance.record("parallel", info["parallel"])
                     provenance.record("lanczos_restarts", info["restarts"])
                     provenance.record("ksp_iterations",
                                       info["ksp_iterations"])

@@ -1,6 +1,6 @@
 """H(curl) bilinear forms: mass (eps u, v), curl-curl (nu curl u, curl v)
 and the antisymmetric Floquet cross term (counterpart of
-palace_tpu/fem/nd_operators.py, element mode).
+palace_tpu/fem/nd_operators.py; `nd_operator` also in qdata mode).
 
 Covariant (value) transform: u = J^{-T} u_ref, so the mass qdata is
 Jinv C Jinv^T; contravariant (curl) transform: curl u = (1/detJ) J curl_ref
@@ -67,11 +67,16 @@ def nd_operator(
     curl_coef: Optional[Dict[int, np.ndarray]] = None,
     mass_coef: Optional[Dict[int, np.ndarray]] = None,
     device: torch.device = torch.device("cpu"),
+    mode: str = "element",
 ) -> PAOperator:
-    """(nu curl u, curl v) + (eps u, v) on an ND space, as dense
-    per-element matrices.  On a 2D mesh (a wave port's cross-section) the
-    curl is the scalar out-of-plane component and its coefficient the zz
-    entry of each 3x3 `curl_coef` tensor."""
+    """(nu curl u, curl v) + (eps u, v) on an ND space.  On a 2D mesh (a
+    wave port's cross-section) the curl is the scalar out-of-plane component
+    and its coefficient the zz entry of each 3x3 `curl_coef` tensor.
+
+    mode="element": dense per-element matrices (one batched matmul apply).
+    mode="qdata": quadrature-point partial assembly with shared basis tables
+    (the curl table in G, the value table in G2); the curl term is 3D-only
+    there, as in palace_tpu."""
     mesh = space.mesh
     sdim = mesh.nodes.shape[1]
     signs_list = getattr(space, "elem_signs", [None] * len(mesh.buckets))
@@ -81,6 +86,26 @@ def nd_operator(
         q = default_qorder(p, b.geo_order, b.geom)
         gf = geometry.compute(mesh.nodes, b, q)
         V, C = space.basis_tables(b.geom, gf.qpts)  # (nq, nd, dim), (nq, nd, dc)
+        if mode == "qdata":
+            bt = BucketTables(gidx=ed, signs=sg)
+            if mass_coef is not None:
+                Cm = _per_elem_tensor(mass_coef, b.attr, sdim)
+                Wm = _planar_sandwich(gf.Jinvp, Cm, gf.Jinvp, gf.wdetJ)
+                bt.G2 = V
+                bt.qd_diff2 = np.ascontiguousarray(
+                    np.moveaxis(Wm, (0, 1), (2, 3)))
+            if curl_coef is not None:
+                if sdim != 3:
+                    raise NotImplementedError("qdata mode is 3D-only for now")
+                Cc = _per_elem_tensor(curl_coef, b.attr, sdim)
+                JT = gf.Jp.transpose(1, 0, 2, 3)
+                wsc = gf.w[None, :] / np.abs(gf.detJ)
+                Wc = _planar_sandwich(JT, Cc, JT, wsc)
+                bt.G = C
+                bt.qd_diff = np.ascontiguousarray(
+                    np.moveaxis(Wc, (0, 1), (2, 3)))
+            buckets.append(bt)
+            continue
         A = None
         if mass_coef is not None:
             Cm = _per_elem_tensor(mass_coef, b.attr, sdim)
@@ -107,8 +132,8 @@ def nd_operator(
             Ac = _assemble(C, Wc)
             A = Ac if A is None else A + Ac
         buckets.append(BucketTables(gidx=ed, A=A, signs=sg))
-    op = PAOperator(space.num_dofs, buckets, device=device)
-    op.space = space
+    op = PAOperator(space.num_dofs, buckets, device=device, mode=mode)
+    op.space = space  # for locality partitioning (parallel/dofsharded.py)
     return op
 
 

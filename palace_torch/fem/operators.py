@@ -1,8 +1,8 @@
 """Quadrature-order policy, per-element coefficient tables and the H1
 bilinear forms (counterpart of palace_tpu/fem/operators.py:
 `QuadraturePolicy`, `default_qorder`, `h1_operator`, `_per_elem_tensor`,
-`_per_elem_scalar`; the operator's element matrices are assembled on the
-host and held on `device`)."""
+`_per_elem_scalar`; the operator's element matrices, or in qdata mode its
+quadrature data, are built on the host and held on `device`)."""
 
 from __future__ import annotations
 
@@ -84,11 +84,13 @@ def _per_elem_tensor(table: Dict[int, np.ndarray], attrs: np.ndarray, dim: int
 
 def h1_operator(space, *, diffusion_coef: Optional[Dict[int, np.ndarray]] = None,
                 mass_coef: Optional[Dict[int, np.ndarray]] = None,
-                device: torch.device = torch.device("cpu")):
-    """(alpha grad u, grad v) + (beta u, v) on an H1 space, as dense float64
-    per-element matrices on `device`, at the default quadrature order.
-    Coefficients are per-attribute 3x3 tensors (mass uses the scalar trace/3
-    unless a scalar is given)."""
+                device: torch.device = torch.device("cpu"),
+                mode: str = "element"):
+    """(alpha grad u, grad v) + (beta u, v) on an H1 space in float64 on
+    `device`, at the default quadrature order: dense per-element matrices
+    (mode="element") or quadrature data with shared basis tables
+    (mode="qdata").  Coefficients are per-attribute 3x3 tensors (mass uses
+    the scalar trace/3 unless a scalar is given)."""
     from palace_torch.mesh import geometry
     from palace_torch.ops.partial import BucketTables, PAOperator
 
@@ -123,8 +125,8 @@ def h1_operator(space, *, diffusion_coef: Optional[Dict[int, np.ndarray]] = None
             qd_mass = gf.wdetJ * c[:, None]
         buckets.append(BucketTables(gidx=ed, B=B, G=G, qd_diffp=qd_diffp,
                                     qd_mass=qd_mass))
-    op = PAOperator(space.num_dofs, buckets, device=device)
-    op.space = space
+    op = PAOperator(space.num_dofs, buckets, device=device, mode=mode)
+    op.space = space  # for locality partitioning (parallel/dofsharded.py)
     return op
 
 

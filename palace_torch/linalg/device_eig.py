@@ -1,5 +1,5 @@
 """Device shift-invert eigensolver for the Maxwell pencil K x = lam M x
-(counterpart of palace_tpu/linalg/device_eig.py, single device).
+(counterpart of palace_tpu/linalg/device_eig.py).
 
 Block Lanczos with thick restart and Rayleigh-Ritz projection (reference:
 palace/drivers/eigensolver.cpp backend select at :98-155,
@@ -7,8 +7,12 @@ palace/linalg/slepc.cpp): every inner solve (K - sigma M)^-1 applied to a
 whole block rides the blocked FGMRES + p-MG solver (linalg/device_ksp.py) on
 the run's device, and the K and M products are its fine-level applies.  On a
 uniform PEC box hex mesh that fine level runs in the carry-class lattice
-layout, through the second hand-written structured-apply kernel.  The
-recurrence itself is orchestrated on the host, as in the JAX package.
+layout, through the second hand-written structured-apply kernel.  With more
+than one rank the inner solves and the applies ride the dof-sharded solver
+(linalg/device_ksp_sharded.py).  The recurrence itself is orchestrated on
+the host, as in the JAX package, and replicated on every rank: its start
+block comes from a fixed seed and every input it reads is the same on every
+rank.
 
 The gradient nullspace of K (the lam = 0 cluster) is removed by an
 M-orthogonal divergence-free projection through the discrete gradient,
@@ -24,6 +28,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from palace_torch import parallel
 from palace_torch.linalg.device_ksp import BlockedDeviceSolver, Term
 from palace_torch.linalg.eig import EigResult
 from palace_torch.utils import timers
@@ -100,15 +105,25 @@ def eig_setup(space, pec_attrs, K_tables, M_tables, ess_mask: np.ndarray,
               log: Optional[Callable] = None, mg_opts: Optional[dict] = None,
               device: torch.device = torch.device("cpu")):
     """The shift-invert solver at sigma (K - sigma M through the
-    carry-class structured fine level where it engages), the div-free
-    projector and the K, M terms of `device_shift_invert_eigs`."""
+    carry-class structured fine level where it engages; with more than one
+    rank the dof-sharded solver, as in palace_tpu/linalg/device_eig.py:
+    116-128), the div-free projector and the K, M terms of
+    `device_shift_invert_eigs`."""
     terms = [Term("K", K_tables, coef=lambda s: 1.0 + 0.0j),
              Term("M", M_tables, coef=lambda s: -complex(s))]
-    solver = BlockedDeviceSolver(
-        space, pec_attrs, terms, [sigma], np.asarray(ess_mask),
-        tol=(inner_tol if inner_tol is not None else max(1e-12, 0.01 * tol)),
-        max_its=200, restart=30, max_block=min(F, 8), log=log,
-        device=device, layout="class", **(mg_opts or {}))
+    kw = dict(tol=(inner_tol if inner_tol is not None
+                   else max(1e-12, 0.01 * tol)),
+              max_its=200, restart=30, max_block=min(F, 8), log=log,
+              device=device, layout="class", **(mg_opts or {}))
+    args = (space, pec_attrs, terms, [sigma], np.asarray(ess_mask))
+    if parallel.n_shards() > 1:
+        from palace_torch.linalg.device_ksp_sharded import (
+            ShardedBlockedDeviceSolver)
+
+        kw.pop("layout")  # no structured fine level on the sharded route
+        solver = ShardedBlockedDeviceSolver(*args, **kw)
+    else:
+        solver = BlockedDeviceSolver(*args, **kw)
     project = DivFreeProjector(space, pec_attrs, terms[1].csr(space.num_dofs),
                                ess_mask)
     return solver, project, terms
@@ -213,8 +228,9 @@ def device_shift_invert_eigs(
         bkwd_out[i] = res_out[i] / (Knorm + abs(lam[i]) * Mnorm)
     device_shift_invert_eigs.last_info = {
         "restarts": restarts, "ksp_iterations": ksp_its,
-        "fine_level": ("structured" if solver.structured is not None
-                       else "element")}
+        "fine_level": solver.fine_level,
+        "parallel": (solver.describe() if parallel.n_shards() > 1
+                     else None)}
     return EigResult(lam, vecs, res_out, bkwd_out)
 
 

@@ -196,10 +196,6 @@ def _col_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.conj(a) * b, dim=0)
 
 
-def _col_norms(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.real(_col_dots(a, a)))
-
-
 def _safe_div(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """w / h per column where h > 0, else w (h real, (F,))."""
     hs = torch.where(h > 0, h, torch.ones_like(h))
@@ -348,6 +344,12 @@ class BlockedDeviceSolver:
         for w in omegas:
             self.add_omega(w)
 
+    @property
+    def fine_level(self) -> str:
+        """The fine-level operator: "structured" (a hand-written kernel) or
+        "element" (`ElemTermOperator`)."""
+        return "element" if self.structured is None else "structured"
+
     def add_omega(self, w: float) -> int:
         """Register a sweep frequency; returns its omega_idx (coefficient and
         lambda_max columns plus the coarse complex LU)."""
@@ -426,13 +428,13 @@ class BlockedDeviceSolver:
                 return z
             auxfree = lvl["aux_free"][:, None]
             res = r - applyA(z)
-            rg = auxfree * _ell_apply(lvl["Gt"], res)
+            rg = auxfree * self._transfer(li, "Gt", res)
 
             def applyBg(u):
                 return auxfree * lvl["aux_apply"](bcoefs, auxfree * u)
 
             zg = _cheb4(applyBg, dginv, aux_lmax, rg, self._smooth_order)
-            return z + free * _ell_apply(lvl["G"], zg)
+            return z + free * self._transfer(li, "G", zg)
 
         for _ in range(self._smooth_its):
             z = aux(primary(z)) if not post else primary(aux(z))
@@ -446,10 +448,35 @@ class BlockedDeviceSolver:
         z = self._smooth(li, ctx, r, None, post=False)
         res = r - free * lvl["apply"](ctx["coefs"], free * z)
         nxt = self._levels[li + 1]
-        rc = nxt["free"][:, None] * _ell_apply(nxt["Pt"], res)
+        rc = nxt["free"][:, None] * self._transfer(li + 1, "Pt", res)
         zc = self._vcycle(li + 1, ctx, rc)
-        z = z + free * _ell_apply(nxt["P"], zc)
+        z = z + free * self._transfer(li + 1, "P", zc)
         return self._smooth(li, ctx, r, z, post=True)
+
+    def _transfer(self, li: int, key: str, u: torch.Tensor) -> torch.Tensor:
+        """One of level li's fixed maps applied to u: the discrete gradient
+        "G" / "Gt" of its auxiliary space, or its prolongation "P" / "Pt"
+        from / to level li - 1."""
+        return _ell_apply(self._levels[li][key], u)
+
+    def _dots(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Per-column a^H b of two level-0 block vectors."""
+        return _col_dots(a, b)
+
+    def _norms(self, a: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(torch.real(self._dots(a, a)))
+
+    def _orthogonalize(self, Vj: torch.Tensor, w: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """w with the basis Vj (k, n, F) projected off, and the k projection
+        coefficients a column (H[:k, j]; H[i, j] = 0 for i >= k): modified
+        Gram-Schmidt."""
+        h = torch.zeros((Vj.shape[0], w.shape[1]), dtype=w.dtype,
+                        device=w.device)
+        for i in range(Vj.shape[0]):
+            h[i] = self._dots(Vj[i], w)
+            w = w - h[i][None, :] * Vj[i]
+        return w, h
 
     # -- FGMRES ----------------------------------------------------------------
 
@@ -467,7 +494,7 @@ class BlockedDeviceSolver:
         def applyA(u):
             return free * fine["apply"](coefs, free * u) + pin * u
 
-        bnorm = _col_norms(b)
+        bnorm = self._norms(b)
         bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
         x = torch.zeros_like(b)
         done = torch.zeros(F, dtype=torch.bool, device=b.device)
@@ -478,17 +505,14 @@ class BlockedDeviceSolver:
         k = 0
         while k < n_outer and not bool(done.all()):
             r = b - applyA(x)
-            beta = _col_norms(r)
+            beta = self._norms(r)
             H = torch.zeros((m + 1, m, F), dtype=b.dtype, device=b.device)
             V[0] = _safe_div(r, beta)
             for j in range(m):
                 z = self._vcycle(0, ctx, V[j])
                 w = applyA(z)
-                for i in range(j + 1):  # MGS (H[i, j] = 0 for i > j)
-                    hij = _col_dots(V[i], w)
-                    w = w - hij[None, :] * V[i]
-                    H[i, j] = hij
-                hn = _col_norms(w)
+                w, H[:j + 1, j] = self._orthogonalize(V[:j + 1], w)
+                hn = self._norms(w)
                 H[j + 1, j] = hn.to(b.dtype)
                 V[j + 1] = _safe_div(w, hn)
                 Z[j] = z
@@ -497,7 +521,7 @@ class BlockedDeviceSolver:
             x_new = x.clone()
             for j in range(m):
                 x_new += Z[j] * y[j][None, :]
-            rn_new = _col_norms(b - applyA(x_new))
+            rn_new = self._norms(b - applyA(x_new))
             conv = rn_new <= self.tol * bnorm
             x = torch.where(done[None, :], x, x_new)
             rn = torch.where(done, rn, rn_new)

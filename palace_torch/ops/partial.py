@@ -1,13 +1,21 @@
-"""Matrix-free operator core: batched element matrices + gather/scatter
-(counterpart of palace_tpu/ops/partial.py, element mode, with
-`_assemble_element_matrices`, `EliminatedOperator` and `make_ess_mask`).
+"""Matrix-free operator core: batched element kernels + gather/scatter
+(counterpart of palace_tpu/ops/partial.py, with `_assemble_element_matrices`,
+`EliminatedOperator` and `make_ess_mask`).
 
-Each apply is t-dofs -> gather -> batched per-element matmul -> sorted
+Each apply is t-dofs -> gather -> batched per-element kernel -> sorted
 segment-sum scatter (index_add_ over the sorted permutation) -> t-dofs, with
 DofTransformation signs folded into per-(element, dof) sign tables.  Host
-tables stay numpy (`BucketTables`); `PAOperator` assembles the dense element
-matrices of quadrature-data buckets on the host and copies every table once
-to its device.
+tables stay numpy (`BucketTables`) and are copied once to the operator's
+device.  Two element-kernel modes, as in palace_tpu:
+
+- "element" (default): dense element matrices A_e (assembled on the host
+  from quadrature data where a bucket carries it), one batched matmul.
+- "qdata": quadrature-point partial assembly B^T (qd) B with the basis
+  tables B, G and G2 shared across the bucket: nd q d numbers per element
+  instead of nd^2.  Every quadrature table a bucket carries enters the
+  apply, the diagonal and the assembled matrices (palace_tpu's qdata apply
+  drops the planar H1 diffusion table and its assembly drops G2 / qd_diff2,
+  the ND mass; ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -76,16 +84,36 @@ def detect_dof_group(gidx_arrays: Sequence[np.ndarray], num_dofs: int) -> int:
 
 @dataclass
 class BucketTables:
-    """Host tables of one element bucket (element mode)."""
+    """Host tables of one element bucket: element matrices, or quadrature
+    data with shared basis tables."""
 
     gidx: np.ndarray  # (E, nd) gather indices
     A: Optional[np.ndarray] = None  # (E, nd, nd) element matrices
     signs: Optional[np.ndarray] = None  # (E, nd)
-    # Quadrature data, folded into A by `_assemble_element_matrices`:
     B: Optional[np.ndarray] = None  # (nq, nd) basis values
-    G: Optional[np.ndarray] = None  # (nq, nd, d) reference gradients
+    G: Optional[np.ndarray] = None  # (nq, nd, d) first basis table
     qd_mass: Optional[np.ndarray] = None  # (E, nq)
-    qd_diffp: Optional[np.ndarray] = None  # (d, d, E, nq) planar layout
+    qd_diff: Optional[np.ndarray] = None  # (E, nq, d, d) with G
+    qd_diffp: Optional[np.ndarray] = None  # (d, d, E, nq) planar, with G
+    G2: Optional[np.ndarray] = None  # (nq, nd, d2) second basis table
+    qd_diff2: Optional[np.ndarray] = None  # (E, nq, d2, d2) with G2
+
+    def qdata_terms(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """(G, W) per quadrature term, W in the (E, nq, d, d) layout (the
+        planar diffusion table converted)."""
+        out = []
+        if self.qd_diffp is not None:
+            out.append((self.G, np.moveaxis(np.asarray(self.qd_diffp),
+                                            (0, 1), (2, 3))))
+        if self.qd_diff is not None:
+            out.append((self.G, self.qd_diff))
+        if self.qd_diff2 is not None:
+            out.append((self.G2, self.qd_diff2))
+        return out
+
+    def element_matrices(self) -> np.ndarray:
+        return np.asarray(self.A if self.A is not None
+                          else _assemble_element_matrices(self))
 
 
 def signed_tables(buckets: Sequence[BucketTables]
@@ -93,7 +121,7 @@ def signed_tables(buckets: Sequence[BucketTables]
     """(gidx, A) per bucket with the orientation signs folded into A."""
     out = []
     for b in buckets:
-        A = np.asarray(b.A)
+        A = b.element_matrices()
         if b.signs is not None:
             s = np.asarray(b.signs)
             A = A * s[:, :, None] * s[:, None, :]
@@ -117,15 +145,34 @@ def tables_csr(tables, num_dofs: int) -> sp.csr_matrix:
         shape=(num_dofs, num_dofs)).tocsr()
 
 
+def _local_apply(t: dict, ul: torch.Tensor) -> torch.Tensor:
+    """A_e u_e for every element of one bucket (u_e signed): the element
+    matmul, or B^T (qd) B over the shared basis tables."""
+    if "A" in t:
+        return torch.einsum("enm,em->en", t["A"], ul)
+    E, nd = ul.shape
+    vl = torch.zeros_like(ul)
+    for G, W in t["qd"]:
+        nq, _, d = G.shape
+        Gm = G.transpose(1, 2).reshape(nq * d, nd)
+        du = (ul @ Gm.T).reshape(E, nq, d)
+        h = torch.einsum("eqdk,eqk->eqd", W, du)
+        vl = vl + h.reshape(E, nq * d) @ Gm
+    if "qd_mass" in t:
+        bu = ul @ t["B"].T
+        vl = vl + (t["qd_mass"] * bu) @ t["B"]
+    return vl
+
+
 def _apply(tables: List[dict], perm: torch.Tensor, seg_ids: torch.Tensor,
            u: torch.Tensor, num_dofs: int) -> torch.Tensor:
-    """Real apply (the counterpart of `_apply_jit`, element mode)."""
+    """Real apply (the counterpart of `_apply_jit`)."""
     locals_ = []
     for t in tables:
         ul = u[t["gidx"]]
         if "signs" in t:
             ul = ul * t["signs"]
-        vl = torch.einsum("enm,em->en", t["A"], ul)
+        vl = _local_apply(t, ul)
         if "signs" in t:
             vl = vl * t["signs"]
         locals_.append(vl)
@@ -134,33 +181,46 @@ def _apply(tables: List[dict], perm: torch.Tensor, seg_ids: torch.Tensor,
 
 class PAOperator:
     """Symmetric bilinear-form operator over the buckets of one space, with
-    its element tables on `device` in `dtype`.  Buckets given as quadrature
-    data get their dense element matrices here (element mode; palace_tpu's
-    qdata mode has no driver caller and is not ported)."""
+    its tables on `device` in `dtype`.  mode="element" applies dense element
+    matrices (buckets given as quadrature data get theirs here); mode="qdata"
+    keeps the quadrature data and the shared basis tables."""
 
     def __init__(self, num_dofs: int, buckets: List[BucketTables],
                  device: torch.device = torch.device("cpu"),
-                 dtype: torch.dtype = torch.float64):
+                 dtype: torch.dtype = torch.float64, mode: str = "element"):
+        if mode not in ("element", "qdata"):
+            raise ValueError(f"unknown PAOperator mode {mode!r}")
         self.num_dofs = num_dofs
         self.buckets = buckets
         self.device = torch.device(device)
         self.dtype = dtype
-        for b in buckets:
-            if b.A is None:
-                b.A = _assemble_element_matrices(b)
-            b.B = b.G = b.qd_mass = b.qd_diffp = None
+        self.mode = mode
+        if mode == "element":
+            for b in buckets:
+                if b.A is None:
+                    b.A = _assemble_element_matrices(b)
+                b.B = b.G = b.qd_mass = b.qd_diff = b.qd_diffp = None
+                b.G2 = b.qd_diff2 = None
         sc = Scatter.build([b.gidx for b in buckets], num_dofs)
         self._perm = torch.as_tensor(sc.perm, device=self.device)
         self._seg = torch.as_tensor(sc.seg_ids, device=self.device)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                   device=self.device)
+
         self._tables = []
         for b in buckets:
             t = {"gidx": torch.as_tensor(np.asarray(b.gidx, np.int64),
-                                         device=self.device),
-                 "A": torch.as_tensor(np.asarray(b.A), dtype=dtype,
-                                      device=self.device)}
+                                         device=self.device)}
+            if b.A is not None:
+                t["A"] = dev(b.A)
+            else:
+                t["qd"] = [(dev(G), dev(W)) for G, W in b.qdata_terms()]
+                if b.qd_mass is not None:
+                    t["B"], t["qd_mass"] = dev(b.B), dev(b.qd_mass)
             if b.signs is not None:
-                t["signs"] = torch.as_tensor(np.asarray(b.signs), dtype=dtype,
-                                             device=self.device)
+                t["signs"] = dev(b.signs)
             self._tables.append(t)
 
     def _tensor(self, u) -> torch.Tensor:
@@ -176,22 +236,31 @@ class PAOperator:
     def diagonal(self) -> torch.Tensor:
         locals_ = []
         for t in self._tables:
-            dl = torch.diagonal(t["A"], dim1=1, dim2=2)
+            if "A" in t:
+                dl = torch.diagonal(t["A"], dim1=1, dim2=2)
+            else:
+                dl = torch.zeros(t["gidx"].shape, dtype=self.dtype,
+                                 device=self.device)
+                for G, W in t["qd"]:
+                    dl = dl + torch.einsum("qnd,eqdk,qnk->en", G, W, G)
+                if "qd_mass" in t:
+                    dl = dl + torch.einsum("qn,eq,qn->en", t["B"],
+                                           t["qd_mass"], t["B"])
             if "signs" in t:
                 dl = dl * t["signs"] * t["signs"]
             locals_.append(dl)
         return _scatter_apply(self._perm, self._seg, self.num_dofs, locals_)
 
     def element_energy(self, u) -> List[torch.Tensor]:
-        """Per-bucket, per-element quadratic forms 0.5 u_e^H A_e u_e."""
+        """Per-bucket, per-element quadratic forms 0.5 u_e^H A_e u_e (in
+        qdata mode through the quadrature apply; palace_tpu raises there)."""
         u = self._tensor(u)
         if u.is_complex():
             re, im = u.real.contiguous(), u.imag.contiguous()
             out = []
             for t in self._tables:
                 xr, xi = self._local(t, re), self._local(t, im)
-                Axr = torch.einsum("enm,em->en", t["A"], xr)
-                Axi = torch.einsum("enm,em->en", t["A"], xi)
+                Axr, Axi = _local_apply(t, xr), _local_apply(t, xi)
                 e = torch.complex((xr * Axr).sum(1) + (xi * Axi).sum(1),
                                   (xr * Axi).sum(1) - (xi * Axr).sum(1))
                 out.append(0.5 * e)
@@ -200,7 +269,7 @@ class PAOperator:
         out = []
         for t in self._tables:
             ul = self._local(t, u)
-            out.append(0.5 * torch.einsum("en,enm,em->e", ul, t["A"], ul))
+            out.append(0.5 * (ul * _local_apply(t, ul)).sum(1))
         return out
 
     @staticmethod
@@ -208,22 +277,27 @@ class PAOperator:
         ul = u[t["gidx"]]
         return ul * t["signs"] if "signs" in t else ul
 
+    def assemble_dense_local(self) -> List[np.ndarray]:
+        """Per-bucket (E, nd, nd) element matrices with the signs folded in
+        (host numpy)."""
+        return [A for _, A in signed_tables(self.buckets)]
+
     def assemble_csr(self) -> sp.csr_matrix:
         """Global sparse matrix (scipy CSR, host; for direct solves)."""
         return tables_csr(signed_tables(self.buckets), self.num_dofs)
 
 
 def _assemble_element_matrices(b: BucketTables) -> np.ndarray:
-    """A_e = sum_q G_q^T W_q G_q + B_q^T qm_q B_q on the host, one dgemm per
-    term against a static assembly tensor:
-      A[e, n*m] = sum_{d,k,q} W[e, d*k*q] * S[d*k*q, n*m],
-      S[d,k,q,n,m] = G[q,n,d] G[q,m,k]."""
+    """A_e = sum_q G_q^T W_q G_q (+ the same with G2) + B_q^T qm_q B_q on the
+    host, one dgemm per term against a static assembly tensor:
+      A[e, n*m] = sum_{q,d,k} W[e, q*d*k] * S[q*d*k, n*m],
+      S[q,d,k,n,m] = G[q,n,d] G[q,m,k]
+    (rows ordered (d, k, q) for the planar diffusion table)."""
     E, nd = np.asarray(b.gidx).shape
     A = np.zeros((E, nd * nd))
     if b.qd_diffp is not None:
         G = np.asarray(b.G)  # (nq, nd, d)
         nq, _, d = G.shape
-        # Rows ordered (dd, k, q) to match the planar qdata layout.
         S = (
             G.transpose(2, 0, 1)[:, None, :, :, None]
             * G.transpose(2, 0, 1)[None, :, :, None, :]
@@ -232,6 +306,16 @@ def _assemble_element_matrices(b: BucketTables) -> np.ndarray:
             np.moveaxis(np.asarray(b.qd_diffp).reshape(d * d, E, nq), 1, 0)
         ).reshape(E, d * d * nq)
         A += W @ S
+    for G, W in ((b.G, b.qd_diff), (b.G2, b.qd_diff2)):
+        if W is None:
+            continue
+        G = np.asarray(G)  # (nq, nd, d)
+        nq, _, d = G.shape
+        S = (
+            G.transpose(0, 2, 1)[:, :, None, :, None]
+            * G.transpose(0, 2, 1)[:, None, :, None, :]
+        ).reshape(nq * d * d, nd * nd)
+        A += np.asarray(W).reshape(E, nq * d * d) @ S
     if b.qd_mass is not None:
         B = np.asarray(b.B)  # (nq, nd)
         nq = B.shape[0]

@@ -1,7 +1,7 @@
 """palace.json machine-readable run metadata (counterpart of
 palace_tpu/post/metadata.py; reference: palace/drivers/basesolver.cpp:290-375
 SaveMetadata overloads).  The writers are copied from the JAX package;
-`save_timing` records the port's memory snapshot."""
+`save_timing` records the port's memory snapshot.  Only rank 0 writes."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import os
 from typing import Dict, List, Optional
 
 from palace_torch import __version__ as VERSION
+from palace_torch import parallel
 from palace_torch.utils import timers
 
 
@@ -22,6 +23,8 @@ def _load(post_dir: str) -> dict:
 
 
 def _write(post_dir: str, meta: dict):
+    if not parallel.is_root():
+        return
     with open(os.path.join(post_dir, "palace.json"), "w") as f:
         json.dump(meta, f, indent=2, sort_keys=True)
         f.write("\n")

@@ -6,7 +6,9 @@ averaged over adjacent elements at shared nodes, matching ParaView's
 rendering of the reference's Lagrange-projected output), plus a .pvd
 collection file.
 
-Copied from palace_tpu/post/paraview.py, imports pointed at palace_torch.
+Copied from palace_tpu/post/paraview.py, imports pointed at palace_torch;
+`write_vtu` and `write_pvd` write on rank 0 only (a multi-rank run writes
+its files once).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from palace_torch import parallel
 from palace_torch.fem import reference as ref
 
 # gmsh etype -> (VTK cell type, node permutation gmsh->vtk)
@@ -87,6 +90,8 @@ def nodal_average_h1(space, u: np.ndarray) -> np.ndarray:
 
 def write_vtu(path: str, mesh, point_fields: Dict[str, np.ndarray]):
     """ASCII VTU with the mesh cells and nodal point data."""
+    if not parallel.is_root():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     nodes = mesh.nodes
     if nodes.shape[1] == 2:
@@ -136,6 +141,8 @@ def write_vtu(path: str, mesh, point_fields: Dict[str, np.ndarray]):
 
 def write_pvd(path: str, entries: List[Tuple[float, str]]):
     """ParaView collection: entries = [(time_or_index, vtu_relpath)]."""
+    if not parallel.is_root():
+        return
     with open(path, "w") as f:
         f.write('<?xml version="1.0"?>\n<VTKFile type="Collection" '
                 'version="0.1">\n<Collection>\n')

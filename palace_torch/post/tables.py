@@ -5,7 +5,9 @@ columns, width = max(min_left_padding + precision + 7, len(header)),
 defaults pad=8 prec=12 sign='+'; the leading index column uses pad=0
 prec=2 and no sign.  Column separator ',', row separator '\\n'.
 
-Copied from palace_tpu/post/tables.py, imports pointed at palace_torch.
+Copied from palace_tpu/post/tables.py, imports pointed at palace_torch;
+`Table.write` writes on rank 0 only (a multi-rank run writes its files
+once).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field
 from typing import List
+
+from palace_torch import parallel
 
 
 @dataclass
@@ -71,6 +75,8 @@ class Table:
         return "\n".join(lines) + "\n"
 
     def write(self, path: str):
+        if not parallel.is_root():  # only rank 0 writes files
+            return
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         with open(path, "w") as f:
             f.write(self.to_string())

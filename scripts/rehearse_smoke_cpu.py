@@ -19,7 +19,9 @@ it (e.g. `--set FLOQUET_BOX=6,3 --set FLOQUET_BOX_DOFS=25506`, phase
 24 before its cut).  `--card` leaves the GPU in place and runs the
 named phases alone on the card (after the card line), on
 chip_smoke.THREADS threads as in the smoke run's processes: their times
-are then those of the phases alone on the GPU.
+are then those of the phases alone on the GPU.  Phase 30 (`phase_sharded`)
+starts its ranks as processes of their own, on the CPU in a rehearsal
+(gloo): rehearsed alone, it runs its single-rank references itself.
 
 Run from the repository root:
     python scripts/rehearse_smoke_cpu.py phase_transient phase_transient_parity
@@ -28,6 +30,9 @@ Run from the repository root:
     python3 scripts/rehearse_smoke_cpu.py --card phase_floquet_eigen
     python scripts/rehearse_smoke_cpu.py phase_2d phase_boundarymode \
         phase_boundarymode_3d
+    python scripts/rehearse_smoke_cpu.py --set DRIVEN_N=4 \
+        --set SHARDED_EIGEN_N=3 --set RINGS_H=2.0 --set RINGS_ORDER=1 \
+        phase_sharded
 Torch runs on RT threads (default 4) without `--card`."""
 
 from __future__ import annotations
@@ -114,6 +119,7 @@ def main(argv) -> int:
     import palace_torch.device as device
 
     device.resolve_device = lambda name: torch.device("cpu")
+    chip_smoke.SHARDED_DEVICE = "CPU"  # phase 30's ranks run on the CPU
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0

@@ -1,7 +1,8 @@
 """The port imports nothing of JAX and nothing of the JAX package.
 
-- Statically: an AST scan of every palace_torch source, chip_smoke.py and
-  the port's scripts (profile_torch_slice.py, mutate_kernels.py,
+- Statically: an AST scan of every palace_torch source, chip_smoke.py,
+  the ranks of the sharded tests (tests/port/sharded_worker.py) and the
+  port's scripts (profile_torch_slice.py, mutate_kernels.py,
   ab_kernel_core.py, rehearse_smoke_cpu.py) finds no import of jax, jaxlib or
   palace_tpu, function-level imports and string imports (`__import__`,
   `importlib.import_module`) included; nor does any of them load a
@@ -134,7 +135,8 @@ print("NOJAX-OK")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")] + [
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "port", "sharded_worker.py")] + [
         os.path.join(REPO, "scripts", name) for name in (
             "profile_torch_slice.py", "mutate_kernels.py",
             "ab_kernel_core.py", "rehearse_smoke_cpu.py")]

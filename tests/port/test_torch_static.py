@@ -382,19 +382,3 @@ def test_rings_electrostatic_matches_jax(tmp_path, monkeypatch):
     assert _rel(rt["C"], rj["C"]) <= 1e-9
     assert rt["C"][0, 1] < 0
     _compare_tables(tmp_path / "jax", tmp_path / "torch", 1e-9)
-
-
-@pytest.mark.cuda
-def test_rings_static_on_card_matches_cpu(tmp_path):
-    """One rings solve of each static driver on the GPU against the CPU."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    for problem, key in (("Electrostatic", "C"), ("Magnetostatic", "M")):
-        res = {}
-        for device in ("GPU", "CPU"):
-            path = write_rings_case(str(tmp_path / f"{problem}{device}"), 4.0,
-                                    1, problem=problem, tol=1e-10,
-                                    max_its=3000, device=device, verbose=0)
-            res[device] = palace_torch.run(path)
-        assert _rel(res["GPU"][key], res["CPU"][key]) <= 1e-8
-        assert max(res["GPU"]["provenance"]["cg_relres"]) <= 1e-10
