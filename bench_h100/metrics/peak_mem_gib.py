@@ -1,0 +1,6 @@
+"""peak_mem_gib: torch.cuda.max_memory_allocated() over set-up and window,
+in GiB (the counter is reset at the start of the run)."""
+
+
+def read(run):
+    return run.peak_bytes / 2 ** 30 if run.peak_bytes > 0 else None
